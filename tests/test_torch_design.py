@@ -1,0 +1,56 @@
+"""The port's copies of the filter designers equal tpudsp's bit for bit."""
+
+import numpy as np
+import pytest
+
+from tpudsp.chains.am import AMConfig
+from tpudsp.design import firdes as jfir
+from tpudsp.design import iirdes as jiir
+from tpudsp_torch.design import firdes as tfir
+from tpudsp_torch.design import iirdes as tiir
+
+
+def _same(a, b):
+    assert a.dtype == b.dtype and a.shape == b.shape
+    np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("m,fc,As,npfb", [
+    (13, 0.45 * AMConfig().rate, 60.0, 64),   # the AM receiver's bank
+    (7, 0.2, 60.0, 32),
+    (4, 0.45, 40.0, 16),
+])
+def test_resamp_bank_equal(m, fc, As, npfb):
+    _same(tfir.resamp_bank(m, fc, As, npfb), jfir.resamp_bank(m, fc, As, npfb))
+
+
+@pytest.mark.parametrize("m,As", [(25, 60.0), (12, 40.0), (3, 20.0)])
+def test_hilbert_fir_equal(m, As):
+    _same(tfir.hilbert_fir(m, As), jfir.hilbert_fir(m, As))
+
+
+@pytest.mark.parametrize("ftype,order,bw", [
+    ("cheby2", 8, 15000.0),          # AMConfig defaults
+    ("cheby2", 4, 10000.0),
+    ("cheby2", 6, 25000.0),
+    ("butter", 2, 5000.0),
+    ("ellip", 5, 40000.0),
+])
+def test_iirdes_and_impulse_response_equal(ftype, order, bw):
+    Fc = bw / AMConfig().iq_rate
+    sos_t = tiir.iirdes_sos(ftype, "lowpass", order, Fc, As=60.0, Ap=0.5)
+    sos_j = jiir.iirdes_sos(ftype, "lowpass", order, Fc, As=60.0, Ap=0.5)
+    _same(sos_t, sos_j)
+    _same(tiir.sos_impulse_response(sos_t, tol=1e-11),
+          jiir.sos_impulse_response(sos_j, tol=1e-11))
+
+
+def test_tf2sos_equal():
+    b, a = [0.2, 0.3, 0.1, 0.05], [1.0, -0.5, 0.2, -0.1]
+    _same(tiir.tf2sos(b, a), jiir.tf2sos(b, a))
+    _same(tiir.tf2sos([1.0, 0.5], [2.0, -0.4]), jiir.tf2sos([1.0, 0.5], [2.0, -0.4]))
+
+
+@pytest.mark.parametrize("rate", [48000.0, 44100.0, 32000.0])
+def test_deemphasis_coeffs_equal(rate):
+    assert tiir.deemphasis_coeffs(rate) == jiir.deemphasis_coeffs(rate)

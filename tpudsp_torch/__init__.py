@@ -1,0 +1,22 @@
+"""tpudsp_torch -- the PyTorch/CUDA port of tpudsp for NVIDIA Hopper.
+
+The package mirrors ``tpudsp``'s module names (``design``, ``kernels``,
+``chains``), so every counterpart sits at the same path. ``tpudsp`` stays
+the numerical reference the port is tested against; this package imports
+``torch`` and never ``jax``.
+
+Plain tensor code is PyTorch. Each Pallas kernel of ``tpudsp/pallas/``
+becomes a hand-written CUDA kernel under ``csrc/``, built at first use by
+``cuda/build.py`` and launched through a wrapper in ``cuda/``. A wrapper
+runs the kernel's plain PyTorch version when its input lies on the CPU,
+and launches the kernel (or raises) when it lies on a CUDA device.
+
+Ported so far: the fused single-channel AM receiver
+(``chains.am.AMReceiver``) on c64, i16 and u8 input, with the AGC +
+squelch + carrier-PLL feedback core as the CUDA kernel
+``csrc/am_front_scan.cu``.
+"""
+
+from .chains.am import AMConfig, AMReceiver  # noqa: F401
+
+__all__ = ["AMConfig", "AMReceiver"]

@@ -1,0 +1,94 @@
+"""Host-side FIR filter design (float64 NumPy).
+
+A verbatim copy of the designers of ``tpudsp/design/firdes.py`` that the
+ported AM receiver needs: the Kaiser lowpass, the Hilbert FIR and the
+polyphase resampler bank. ``tpudsp.design`` cannot be imported here,
+because ``tpudsp/__init__.py`` imports jax; tests/test_torch_design.py
+holds these copies equal to the originals bit for bit.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def kaiser_beta(As: float) -> float:
+    """Kaiser window shape parameter from stopband attenuation in dB."""
+    As = abs(float(As))
+    if As > 50.0:
+        return 0.1102 * (As - 8.7)
+    if As > 21.0:
+        return 0.5842 * (As - 21.0) ** 0.4 + 0.07886 * (As - 21.0)
+    return 0.0
+
+
+def kaiser_lowpass(n: int, fc: float, As: float = 60.0, mu: float = 0.0) -> np.ndarray:
+    """Kaiser-windowed sinc lowpass, ``n`` taps, cutoff ``fc`` (cycles/sample,
+    0 < fc <= 0.5), stopband ``As`` dB, fractional sample offset ``mu``.
+
+    Matches the parameterization of liquid's firfilt_rrrf_create_kaiser.
+    DC gain is approximately unity (exactly 2*fc * sum(sinc)); callers that
+    need exact unity DC gain normalize explicitly.
+    """
+    if n < 1:
+        raise ValueError("kaiser_lowpass: need n >= 1")
+    if not (0.0 < fc <= 0.5):
+        raise ValueError(f"kaiser_lowpass: fc must be in (0, 0.5], got {fc}")
+    beta = kaiser_beta(As)
+    k = np.arange(n, dtype=np.float64)
+    t = k - (n - 1) / 2.0 + mu
+    h = 2.0 * fc * np.sinc(2.0 * fc * t)
+    w = np.kaiser(n, beta)
+    return (h * w).astype(np.float64)
+
+
+def hilbert_fir(m: int, As: float = 60.0) -> np.ndarray:
+    """Kaiser-windowed Hilbert-transform FIR of length 4*m+1 (liquid firhilbf
+    equivalent).
+
+    Odd-length antisymmetric type-III design: h[c + k] = 0 for even k,
+    (2/(pi k)) * window for odd k. Group delay is 2*m samples. The companion
+    in-phase branch is a pure 2*m-sample delay.
+    """
+    n = 4 * m + 1
+    c = n // 2
+    k = np.arange(n, dtype=np.float64) - c
+    with np.errstate(divide="ignore", invalid="ignore"):
+        h = np.where(k % 2 != 0, 2.0 / (np.pi * k), 0.0)
+    h[c] = 0.0
+    w = np.kaiser(n, kaiser_beta(As))
+    return h * w
+
+
+def resamp_bank(m: int, fc: float, As: float, npfb: int) -> np.ndarray:
+    """Polyphase filterbank for the arbitrary-rate resampler (liquid
+    resamp_rrrf/crcf/cccf equivalent).
+
+    Prototype: Kaiser lowpass of length 2*m*npfb + 1 designed at the
+    npfb-times-upsampled rate with cutoff fc/npfb (fc normalized to the
+    *input* rate).
+
+    Returns ``H`` of shape (npfb + 1, 2*m): row ``b`` holds the taps for
+    fractional phase b/npfb; row ``npfb`` is row 0 advanced one input sample
+    so that linear interpolation between adjacent rows is valid for the
+    whole phase range [0, 1). Output at continuous position p = q + f uses
+    input window X[q : q+2m] with taps H[round-down(f*npfb)] linearly
+    interpolated toward the next row.
+    """
+    if not (0.0 < fc <= 0.5):
+        raise ValueError(f"resamp_bank: fc must be in (0, 0.5], got {fc}")
+    L = 2 * m * npfb + 1
+    h = kaiser_lowpass(L, fc / npfb, As)
+    # normalize prototype to unity DC gain at the upsampled rate, then scale
+    # by npfb so each polyphase row has ~unity DC gain
+    h = h / h.sum() * npfb
+    c = L // 2  # = m * npfb
+    # taps_f[i] = g(f + m - i) with g(t) = npfb * h[npfb*t + c], i = 0..2m-1
+    # integer lattice: H[b][i] = h[b + (m - i)*npfb + c] = h[b + (2m - i)*npfb]
+    hp = np.concatenate([h, np.zeros(npfb + 1)])
+    i = np.arange(2 * m)
+    b = np.arange(npfb + 1)
+    idx = b[:, None] + (2 * m - i)[None, :] * npfb
+    idx = np.clip(idx, 0, len(hp) - 1)
+    H = hp[idx]
+    return H

@@ -1,0 +1,11 @@
+"""Pure (params, state, block) -> (state, block) functions on tensors: the
+counterparts of ``tpudsp.kernels``, in plain PyTorch."""
+
+import torch
+
+
+def f32_matmul(a, b):
+    """a @ b in full float32. TF32 would keep ~10 mantissa bits and cost the
+    AM chain its 100 dB pin, so it is switched off before every product."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.matmul(a, b)
