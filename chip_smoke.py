@@ -7,26 +7,48 @@ Run from the root of a checkout, on a machine with a CUDA device and the
 CUDA toolkit. Phases, each of which fails the run (exit code 1, no final
 result line) if it fails:
 
-1. build   -- compile every kernel of the port from csrc/ with nvcc, in
-              parallel, and print the seconds it took;
-2. kernel  -- the CUDA front-scan kernel against its plain PyTorch version
-              on the card: the main path's shape (one stream, 96000 samples,
-              chunk = warmup = 3840), a ragged 3-stream batch with squelch
-              on, and a short block (the exact single-lane launch). vr must
-              reach 90 dB SNR, modes must be equal, final states close;
+1. build   -- compile every kernel of the port from csrc/ with nvcc, one
+              process per source, all at once, and print the seconds it
+              took;
+2. kernel  -- each CUDA kernel against its plain PyTorch version on the
+              card, at the shapes its paths give it:
+              am_front_scan: the AM receiver's shape (one stream, 96000
+                samples, chunk = warmup = 3840), a ragged 3-stream batch
+                with squelch on, and a short block (the exact single-lane
+                launch);
+              agc_scan: one 4,000,000-sample block on the Pallas route
+                (chunk 1024, warmup 3840: 3907 lanes, ragged last chunk),
+                the same block on the XLA route (chunk = warmup = 3840), a
+                ragged 3-stream batch with squelch on, and the exact
+                single-lane launch at the README AMRadio's callback shape;
+              pll_scan: the chunked scan over 96,000 samples and the exact
+                single-lane launch at the AMRadio's callback shape.
+              Outputs must reach 90 dB SNR, modes must be equal, final
+              states close;
 3. chain   -- AMReceiver on the card over two 2M-sample blocks against the
               float64 sample-serial oracle chain (numpy, on the host):
               >= 100 dB over the settled second half;
-4. width   -- the main path at full width: AMReceiver on 4M-sample blocks
+4. width   -- the AM receiver at full width: AMReceiver on 4M-sample blocks
               (the largest block of the JAX package's bench), three blocks
               with carried state, for c64, i16 and u8 input; i16/u8 >= 90 dB
-              against c64, all finite, every kernel launched (launch counts
-              are zeroed just before and read just after this phase);
-5. timing  -- per-format block time (median of 5 with spread) and the
-              kernel against its plain version at the phase-2 main shape.
+              against c64, all finite, am_front_scan launched (launch counts
+              are zeroed just before and read just after this path);
+5. compat  -- the README's AMRadio, verbatim, on tpudsp_torch.compat on the
+              card: 2 Msps int16 bytes through bytes_to_iq, 2^21 samples in
+              2^18-sample callbacks, >= 100 dB over the settled half against
+              a float64 oracle chain built from the compat ops' own designs;
+              agc_scan and pll_scan launched during this path. Then
+              AGC(throughput_mode=True, use_pallas=True) over three
+              4M-sample blocks with carried state: finite, agc_scan launched;
+6. timing  -- per-format block time of the AM receiver and per-callback time
+              of the AMRadio (median of 5 with spread), and each kernel's
+              time against its plain version's at its main shape.
 
 Prints the card's name and power limit first, a "kernels" JSON line before
-the last, and as the last line
+the last (per kernel: launches on its path, max abs error against its plain
+version, ms, plain ms, the bound computed from the shape, and the library
+call's time, null where no single PyTorch call computes the function), and
+as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero without that line when no CUDA device is present or when it
 is run outside a checkout of the repository.
@@ -46,10 +68,20 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
-CHUNK = WARMUP = 3840       # the main path's chunk and warmup (default AMConfig)
+DEV = "cuda"
+CHUNK = WARMUP = 3840       # the AM receiver's chunk and warmup (default AMConfig)
 N_OUT_4M = 96_000           # pcm samples of one 4M-sample block
+BLOCK_4M = 4_000_000
+AGC_CHUNK, AGC_WARMUP = 1024, 3840   # AGC op's Pallas route at alpha = 0.01
+CALLBACK = 1 << 18          # examples/am_radio.py's callback
+N_RADIO = 1 << 21
+N_CALLBACK_OUT = 6291       # AGC / AmpModem samples per AMRadio callback
+HBM_BPS = 3.35e12           # H100 SXM: device memory rate
+F32_FLOPS = 67e12           # H100 SXM: f32 rate outside the tensor cores
+# f32 operations per sample of each scan step (a transcendental counts one)
+OPS_AGC, OPS_PLL = 25, 20
 
-results: dict = {}
+results: dict = {"kernels": {}}
 
 
 def log(msg: str) -> None:
@@ -57,10 +89,20 @@ def log(msg: str) -> None:
 
 
 def snr_db(ref, test) -> float:
-    ref = np.asarray(ref, np.float64)
-    err = ref - np.asarray(test, np.float64)
-    p_err = np.mean(err ** 2)
-    return float("inf") if p_err == 0 else float(10 * np.log10(np.mean(ref ** 2) / p_err))
+    ref = np.asarray(ref)
+    ref = ref.astype(np.complex128 if np.iscomplexobj(ref) else np.float64)
+    err = ref - np.asarray(test, ref.dtype)
+    p_err = np.mean(np.abs(err) ** 2)
+    return float("inf") if p_err == 0 else float(10 * np.log10(np.mean(np.abs(ref) ** 2) / p_err))
+
+
+def bound(name: str, nbytes: float, ops: float):
+    """The least time for the work: bytes over the memory rate, operations
+    over the f32 rate; record it and which of the two it is."""
+    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, ops / F32_FLOPS * 1e3
+    results["kernels"][name].update(
+        bound_ms=max(t_bytes, t_ops),
+        bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
 def am_signal(n: int, rate: float, carrier_hz: float, amp: float = 0.3,
@@ -76,28 +118,25 @@ def am_signal(n: int, rate: float, carrier_hz: float, amp: float = 0.3,
     return x.astype(np.complex64)
 
 
-def oracle_am_chain(iq, cfg):
-    """The float64 sample-serial oracle chain of tests/test_chain_snr.py
-    (bandpass -> resample -> AGC -> PLL AM demod with DC tracker ->
-    de-emphasis); the bandpass runs as scipy's sosfilt, the same
-    transposed direct form II recurrence as SosFilterOracle."""
+def oracle_chain(iq, sos, H, rate, agc_bw, agc_scale, modulation, pcm_rate):
+    """The float64 sample-serial oracle chain of tests/test_chain_snr.py:
+    bandpass (sos) -> resample (bank H) -> AGC -> PLL AM demod with DC
+    tracker -> de-emphasis, from tests/oracle/liquid_oracle.py. The
+    bandpass runs as scipy's sosfilt, the same transposed direct form II
+    recurrence as its SosFilterOracle, in float64."""
     import importlib.util
     import scipy.signal as sig
-    from tpudsp_torch.design import firdes, iirdes
+    from tpudsp_torch.design import iirdes
     # loaded by path: an installed package named "tests" may shadow the repo's
     spec = importlib.util.spec_from_file_location(
         "liquid_oracle", ROOT / "tests" / "oracle" / "liquid_oracle.py")
     lo = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(lo)
-    AgcOracle, FirstOrderOracle, ResampOracle = lo.AgcOracle, lo.FirstOrderOracle, lo.ResampOracle
-    sos = iirdes.iirdes_sos("cheby2", "lowpass", cfg.order,
-                            cfg.bandwidth / cfg.iq_rate, As=60.0, Ap=0.5)
     bb = sig.sosfilt(sos, np.asarray(iq, np.complex128))
-    H = firdes.resamp_bank(cfg.resamp_m, 0.45 * cfg.rate, 60.0, cfg.resamp_npfb)
-    agc = AgcOracle(bandwidth=cfg.agc_bandwidth)
-    agc.scale = cfg.agc_scale
+    agc = lo.AgcOracle(bandwidth=agc_bw)
+    agc.scale = agc_scale
     agc.sq_mode = 7  # squelch disabled
-    y, _ = agc(ResampOracle(H, cfg.rate, complex_data=True)(bb))
+    y, _ = agc(lo.ResampOracle(H, rate, complex_data=True)(bb))
     theta, freq, dc = 0.0, 0.0, 0.0
     alpha, beta, rho = 0.001, np.sqrt(0.001), 0.9995
     out = np.empty(len(y))
@@ -107,8 +146,18 @@ def oracle_am_chain(iq, cfg):
         freq += alpha * err
         theta = (theta + beta * err + freq + np.pi) % (2 * np.pi) - np.pi
         dc = rho * dc + (1 - rho) * v.real
-        out[n] = (v.real - dc) / cfg.modulation
-    return FirstOrderOracle(*iirdes.deemphasis_coeffs(cfg.pcm_rate))(out)
+        out[n] = (v.real - dc) / modulation
+    return lo.FirstOrderOracle(*iirdes.deemphasis_coeffs(pcm_rate))(out)
+
+
+def oracle_am_chain(iq, cfg):
+    """The oracle chain with AMReceiver's designs."""
+    from tpudsp_torch.design import firdes, iirdes
+    sos = iirdes.iirdes_sos("cheby2", "lowpass", cfg.order,
+                            cfg.bandwidth / cfg.iq_rate, As=60.0, Ap=0.5)
+    H = firdes.resamp_bank(cfg.resamp_m, 0.45 * cfg.rate, 60.0, cfg.resamp_npfb)
+    return oracle_chain(iq, sos, H, cfg.rate, cfg.agc_bandwidth, cfg.agc_scale,
+                        cfg.modulation, cfg.pcm_rate)
 
 
 def front_params(squelch=False, threshold=0.0):
@@ -116,19 +165,47 @@ def front_params(squelch=False, threshold=0.0):
     from tpudsp_torch.kernels import agc as kagc
     from tpudsp_torch.kernels import am_backend as kab
     agcp = kagc.make_params(alpha=0.01, scale=0.01, squelch=squelch,
-                            threshold=threshold, device="cuda")
-    return kab.make_params(agcp, torch.tensor(0.5, device="cuda"), 0.05, 0.95,
+                            threshold=threshold, device=DEV)
+    return kab.make_params(agcp, torch.tensor(0.5, device=DEV), 0.05, 0.95,
                            carrier=True)
+
+
+def agc_state(C: int, squelch=False):
+    from tpudsp_torch.kernels import agc as kagc
+    return kagc.AgcState(*(v.expand(C).contiguous() for v in
+                           kagc.agc_init(squelch=squelch, device=DEV)))
 
 
 def front_state(C: int, squelch=False):
     import torch
-    from tpudsp_torch.kernels import agc as kagc
     from tpudsp_torch.kernels import am_backend as kab
-    a0 = kagc.agc_init(squelch=squelch, device="cuda")
-    z = lambda: torch.zeros(C, device="cuda")
-    return kab.FrontState(kagc.AgcState(*(v.expand(C).contiguous() for v in a0)),
-                          kab.PllState(z(), z()))
+    z = lambda: torch.zeros(C, device=DEV)
+    return kab.FrontState(agc_state(C, squelch), kab.PllState(z(), z()))
+
+
+def timed(fn):
+    """(fn(), its time in ms on the card's clock)."""
+    import torch
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0.record()
+    out = fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return out, t0.elapsed_time(t1)
+
+
+def _cuda_ms(fn, reps: int) -> float:
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
 
 
 # --------------------------------------------------------------------------
@@ -142,59 +219,144 @@ def phase_build():
     log(f"build: {len(libs)} kernel source(s) in {time.perf_counter() - t0:.2f} s")
 
 
-def _compare(name, kernel_out, ref_out, snr_bar=90.0):
-    """kernel vs plain front: vr SNR per stream, equal modes, close finals.
-    Returns the max abs error of vr."""
+def _close_states(name, kst, rst, theta=False):
+    """Final states of kernel vs plain: FSM leaves equal, g relative error
+    < 1e-4, theta (wrapped) < 1e-3 rad on streams whose output is live."""
     import torch
-    (kf, (kvr, km)), (rf, (rvr, rm)) = kernel_out, ref_out
-    torch.cuda.synchronize()
-    kvr, rvr = kvr.cpu().numpy(), rvr.cpu().numpy()
-    worst = min(snr_db(rvr[c], kvr[c]) for c in range(rvr.shape[0]))
-    max_err = float(np.max(np.abs(kvr - rvr)))
-    modes_equal = torch.equal(km.cpu(), rm.cpu())
-    dtheta = np.angle(np.exp(1j * (kf.pll.theta.double().cpu().numpy()
-                                   - rf.pll.theta.double().cpu().numpy())))
-    live = ~np.isin(rf.agc.sq_mode.cpu().numpy(), [1, 5])
-    g_rel = float(np.max(np.abs(kf.agc.g.cpu().numpy() / rf.agc.g.cpu().numpy() - 1)))
-    fsm_equal = (torch.equal(kf.agc.sq_mode.cpu(), rf.agc.sq_mode.cpu())
-                 and torch.equal(kf.agc.sq_timer.cpu(), rf.agc.sq_timer.cpu()))
-    theta_err = float(np.max(np.abs(dtheta[live]), initial=0.0))
-    log(f"kernel[{name}]: vr snr {worst:.2f} dB, max_abs_err {max_err:.3e}, "
-        f"modes equal {modes_equal}, fsm state equal {fsm_equal}, "
-        f"g rel err {g_rel:.2e}, theta err (live streams) {theta_err:.2e}")
-    ok = (worst >= snr_bar and modes_equal and fsm_equal and g_rel < 1e-4
-          and theta_err < 1e-3)
+    ok = True
+    if hasattr(kst, "sq_mode"):
+        ok &= torch.equal(kst.sq_mode.cpu(), rst.sq_mode.cpu())
+        ok &= torch.equal(kst.sq_timer.cpu(), rst.sq_timer.cpu())
+        ok &= float(torch.max(torch.abs(kst.g / rst.g - 1))) < 1e-4
+    if theta:
+        d = np.angle(np.exp(1j * (kst.theta.double().cpu().numpy()
+                                  - rst.theta.double().cpu().numpy())))
+        ok &= float(np.max(np.abs(d), initial=0.0)) < 1e-3
     if not ok:
+        raise AssertionError(f"kernel[{name}]: final states disagree")
+
+
+def _compare(name, kernel_out, ref_out, snr_bar=90.0):
+    """A scan kernel vs its plain version: output SNR per stream (vr of
+    am_front_scan, y of agc_scan), equal modes, close final states.
+    Returns the max abs error of the output."""
+    import torch
+    (kf, (ky, km)), (rf, (ry, rm)) = kernel_out, ref_out
+    torch.cuda.synchronize()
+    ky, ry = ky.cpu().numpy(), ry.cpu().numpy()
+    worst = min(snr_db(ry[c], ky[c]) for c in range(ry.shape[0]))
+    max_err = float(np.max(np.abs(ky - ry)))
+    modes_equal = torch.equal(km.cpu(), rm.cpu())
+    log(f"kernel[{name}]: snr {worst:.2f} dB, max_abs_err {max_err:.3e}, "
+        f"modes equal {modes_equal}")
+    if not (worst >= snr_bar and modes_equal):
         raise AssertionError(f"kernel[{name}] disagrees with its plain version")
+    if hasattr(kf, "pll"):       # am_front_scan: AGC and PLL states
+        live = torch.from_numpy(~np.isin(rf.agc.sq_mode.cpu().numpy(), [1, 5]))
+        sel = lambda s: type(s)(*(v[live.to(v.device)] for v in s))
+        _close_states(name, kf.agc, rf.agc)
+        _close_states(name, sel(kf.pll), sel(rf.pll), theta=True)
+    else:
+        _close_states(name, kf, rf)
     return max_err
+
+
+def _compare_pll(name, kernel_out, ref_out, snr_bar=90.0):
+    """pll_scan vs its plain version: e^{j theta} SNR per stream, close
+    finals. Returns the max abs (wrapped) error of theta."""
+    import torch
+    (kf, kth), (rf, rth) = kernel_out, ref_out
+    torch.cuda.synchronize()
+    kth, rth = kth.double().cpu().numpy(), rth.double().cpu().numpy()
+    worst = min(snr_db(np.exp(1j * rth[c]), np.exp(1j * kth[c]))
+                for c in range(rth.shape[0]))
+    max_err = float(np.max(np.abs(np.angle(np.exp(1j * (kth - rth))))))
+    log(f"kernel[{name}]: e^(j theta) snr {worst:.2f} dB, max_abs_err {max_err:.3e}")
+    if not worst >= snr_bar:
+        raise AssertionError(f"kernel[{name}] disagrees with its plain version")
+    _close_states(name, kf, rf, theta=True)
+    return max_err
+
+
+def _record(name, max_err, plain_ms, **kw):
+    results["kernels"].setdefault(name, {}).update(
+        max_abs_err=max_err, plain_ms=plain_ms, **kw)
 
 
 def phase_kernel():
     import torch
+    from tpudsp_torch.cuda import agc_scan, pll_scan
     from tpudsp_torch.cuda import am_backend_scan as scan
-    # main-path shape: one stream of 96000 pcm-rate samples (a 4M block)
+    from tpudsp_torch.kernels import agc as kagc
+    from tpudsp_torch.kernels import am_backend as kab
+    # am_front_scan at the AM receiver's shape: one stream of 96000
+    # pcm-rate samples (a 4M block)
     x = torch.from_numpy(am_signal(N_OUT_4M, 48_000.0, 200.0, noise=0.003,
-                                   seed=1)[None]).cuda()
+                                   seed=1)[None]).to(DEV)
     p, st = front_params(), front_state(1)
-    results["main_err"] = _compare(
-        "main C=1 L=96000", scan.front_chunked(p, st, x, CHUNK, WARMUP),
-        scan.front_chunked_ref(p, st, x, CHUNK, WARMUP))
+    ref, plain_ms = timed(lambda: scan.front_chunked_ref(p, st, x, CHUNK, WARMUP))
+    _record("am_front_scan", _compare(
+        "am_front_scan C=1 L=96000", scan.front_chunked(p, st, x, CHUNK, WARMUP),
+        ref), plain_ms)
     # ragged batch, squelch on: loud / quiet / loud-then-quiet streams with
     # settled rssi near -10 dB and -60 dB, far from the -35 dB threshold
     L = 50_000 - 77
     xs = np.stack([am_signal(L, 48_000.0, 150.0 * (c + 1), amp)
                    for c, amp in enumerate((0.3, 0.001, 0.3))])
     xs[2, L // 2:] *= 0.003
-    xs = torch.from_numpy(xs).cuda()
+    xs = torch.from_numpy(xs).to(DEV)
     p, st = front_params(squelch=True, threshold=-35.0), front_state(3, squelch=True)
-    _compare("ragged C=3 squelch", scan.front_chunked(p, st, xs, CHUNK, WARMUP),
+    _compare("am_front_scan ragged C=3 squelch",
+             scan.front_chunked(p, st, xs, CHUNK, WARMUP),
              scan.front_chunked_ref(p, st, xs, CHUNK, WARMUP))
     # short block: L <= chunk + warmup runs the exact single-lane launch
-    from tpudsp_torch.kernels import am_backend as kab
-    xb = x[:, :5000].contiguous()
+    xb = x[:, :2000].contiguous()
     p, st = front_params(), front_state(1)
-    _compare("short C=1 L=5000", scan.front_chunked(p, st, xb, CHUNK, WARMUP),
-             kab.front_exact(p, st, xb))
+    _compare("am_front_scan short C=1 L=2000",
+             scan.front_chunked(p, st, xb, CHUNK, WARMUP), kab.front_exact(p, st, xb))
+
+    # agc_scan at its main shape: the AGC op's Pallas route on one 4M block
+    x4 = torch.from_numpy(am_signal(BLOCK_4M, 2e6, 200.0, noise=0.01,
+                                    seed=4)[None]).to(DEV)
+    ap = kagc.make_params(alpha=0.01, scale=0.01, device=DEV)
+    st = agc_state(1)
+    ref, plain_ms = timed(lambda: agc_scan.agc_chunked_pallas_ref(
+        ap, st, x4, AGC_CHUNK, AGC_WARMUP))
+    _record("agc_scan", _compare(
+        "agc_scan pallas route L=4M chunk=1024 warmup=3840",
+        agc_scan.agc_chunked_pallas(ap, st, x4, AGC_CHUNK, AGC_WARMUP), ref),
+        plain_ms)
+    _compare("agc_scan xla route L=4M chunk=warmup=3840",
+                 agc_scan.agc_chunked(ap, st, x4, CHUNK, WARMUP),
+                 kagc.agc_apply_chunked(ap, st, x4, CHUNK, WARMUP))
+    apq = kagc.make_params(alpha=0.01, scale=0.01, squelch=True,
+                           threshold=-35.0, device=DEV)
+    stq = agc_state(3, squelch=True)
+    _compare("agc_scan pallas route ragged C=3 squelch",
+                 agc_scan.agc_chunked_pallas(apq, stq, xs, AGC_CHUNK, AGC_WARMUP),
+                 agc_scan.agc_chunked_pallas_ref(apq, stq, xs, AGC_CHUNK, AGC_WARMUP))
+    # the exact single-lane launch at the AMRadio callback's shape
+    xc = torch.from_numpy(am_signal(N_CALLBACK_OUT, 48_000.0, 200.0, noise=0.003,
+                                    seed=5)[None]).to(DEV)
+    ref, plain_ms = timed(lambda: kagc.agc_apply(ap, st, xc))
+    _record("agc_scan exact", _compare(
+        f"agc_scan exact L={N_CALLBACK_OUT}", agc_scan.agc_exact(ap, st, xc), ref),
+        plain_ms)
+
+    # pll_scan: the chunked scan over 96000 samples, and the exact
+    # single-lane launch at the AMRadio callback's shape (its main path)
+    from tpudsp_torch.kernels import pll as kpll
+    z = lambda: torch.zeros(1, device=DEV)
+    pst = kpll.PllState(z(), z())
+    bw = 0.001
+    _compare_pll("pll_scan chunked L=96000",
+                 pll_scan.pll_carrier_scan_chunked(pst, x, bw),
+                 kpll.pll_carrier_scan_chunked(pst, x, bw))
+    ref, plain_ms = timed(lambda: kpll.pll_carrier_scan(pst, xc, bw))
+    _record("pll_scan", _compare_pll(f"pll_scan exact L={N_CALLBACK_OUT}",
+                                     pll_scan.pll_carrier_scan(pst, xc, bw), ref),
+            plain_ms)
+    results["inputs"] = dict(x96k=x, x4m=x4, xc=xc)
 
 
 def phase_chain():
@@ -204,9 +366,9 @@ def phase_chain():
     n, block = 4_000_000, 2_000_000
     iq = am_signal(n, cfg.iq_rate, 200.0)
     y_ref = oracle_am_chain(iq, cfg)
-    rx = AMReceiver(cfg, block, device="cuda")
-    y = torch.cat([rx(torch.from_numpy(iq[:block]).cuda()),
-                   rx(torch.from_numpy(iq[block:]).cuda())]).cpu().numpy()
+    rx = AMReceiver(cfg, block, device=DEV)
+    y = torch.cat([rx(torch.from_numpy(iq[:block]).to(DEV)),
+                   rx(torch.from_numpy(iq[block:]).to(DEV))]).cpu().numpy()
     settle = len(y) // 2
     s = snr_db(y_ref[settle:], y[settle:])
     log(f"chain: 2 x 2M-sample blocks vs float64 oracle chain: {s:.2f} dB "
@@ -233,17 +395,16 @@ def phase_width():
     import torch
     from tpudsp_torch.chains.am import AMConfig, AMReceiver
     from tpudsp_torch.cuda import am_backend_scan as scan
-    block = 4_000_000
-    data = wire_blocks(3, block, seed=2)
-    rxs = {k: AMReceiver(AMConfig(), block, "c64" if k.startswith("c64") else k,
-                         device="cuda") for k in data}
-    gpu = {k: [torch.from_numpy(b).cuda() for b in v] for k, v in data.items()}
+    data = wire_blocks(3, BLOCK_4M, seed=2)
+    rxs = {k: AMReceiver(AMConfig(), BLOCK_4M, "c64" if k.startswith("c64") else k,
+                         device=DEV) for k in data}
+    gpu = {k: [torch.from_numpy(b).to(DEV) for b in v] for k, v in data.items()}
     torch.cuda.synchronize()
-    scan._launch.launches = 0                      # the main path's run starts
+    scan._launch.launches = 0                      # the receiver's run starts
     out = {k: torch.cat([rxs[k](b) for b in gpu[k]]) for k in data}
     torch.cuda.synchronize()
     launches = scan._launch.launches               # ... and ends
-    results["launches"] = {"am_front_scan": launches}
+    results["kernels"].setdefault("am_front_scan", {})["launches"] = launches
     out = {k: v.cpu().numpy() for k, v in out.items()}
     settle = N_OUT_4M  # skip the first block (PLL lock, DC tracker settling)
     finite = all(np.all(np.isfinite(v)) and v.shape == (3 * N_OUT_4M,) for v in out.values())
@@ -256,29 +417,122 @@ def phase_width():
         raise AssertionError("full-width phase failed")
 
 
-def _cuda_ms(fn, reps: int) -> float:
+def am_radio_class(liquiddsp):
+    """The reference README's AMRadio, verbatim (examples/am_radio.py:15-31)."""
+    class AMRadio:
+        def __init__(self, bandwidth=15000, iq_rate=2000000, pcm_rate=48000):
+            self.bandpass = liquiddsp.ComplexIIRFilter(
+                filter_type="cheby2", order=8, Fc=bandwidth / iq_rate)
+            self.resample = liquiddsp.ComplexResampler(
+                rate=pcm_rate / iq_rate, Fc=pcm_rate / iq_rate)
+            self.am = liquiddsp.AmpModem(modulation=0.5, type="dsb", carrier=True)
+            self.audio_filter = liquiddsp.DeemphasisFilter(pcm_rate)
+            self.agc = liquiddsp.AGC()
+            self.agc.lock = False
+            self.agc.scale = 0.01
+            self.pcm = b""
+
+        def __call__(self, iq):
+            pcm = self.audio_filter(self.am(self.agc(self.resample(self.bandpass(iq)))))
+            self.pcm += pcm.tobytes()
+            return pcm
+
+    return AMRadio
+
+
+def radio_raw(n: int, iq_rate: float = 2e6):
+    """examples/am_radio.py's int16 IQ: a 1 kHz tone, 50% AM, 200 Hz off."""
+    t = np.arange(n)
+    msg = np.sin(2 * np.pi * 1000.0 / iq_rate * t)
+    iq = (1 + 0.5 * msg) * 0.3 * np.exp(2j * np.pi * 200.0 / iq_rate * t)
+    raw = np.empty(2 * n, np.int16)
+    raw[0::2] = np.clip(iq.real * 32767, -32767, 32767)
+    raw[1::2] = np.clip(iq.imag * 32767, -32767, 32767)
+    return raw
+
+
+def phase_compat():
     import torch
-    fn()
+    import tpudsp_torch.compat as liquiddsp
+    from tpudsp_torch.cuda import agc_scan, pll_scan
+    from tpudsp_torch.design import firdes, iirdes
+    AMRadio = am_radio_class(liquiddsp)
+    raw = radio_raw(N_RADIO)
+    callbacks = [raw[2 * i: 2 * (i + CALLBACK)].tobytes()
+                 for i in range(0, N_RADIO, CALLBACK)]
+    radio = AMRadio()
+    if radio.agc.device.type != "cuda":
+        raise AssertionError(f"compat ops built on {radio.agc.device}")
     torch.cuda.synchronize()
-    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(reps):
-        fn()
-    t1.record()
+    agc_scan._launch.launches = pll_scan._launch.launches = 0   # the path starts
+    for cb in callbacks:
+        radio(liquiddsp.bytes_to_iq(cb))
     torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / reps
+    launches = {"agc_scan": agc_scan._launch.launches,         # ... and ends
+                "pll_scan": pll_scan._launch.launches}
+    y = np.frombuffer(radio.pcm, np.float32)
+    rate = 48_000 / 2e6
+    sos = iirdes.iirdes_sos("cheby2", "lowpass", 8, 15000 / 2e6, 0.3, 0.7, 60.0)
+    y_ref = oracle_chain(liquiddsp.bytes_to_iq(raw.tobytes()), sos,
+                         firdes.resamp_bank(20, rate, 60.0, 13), rate, 0.01,
+                         0.01, 0.5, 48_000.0)
+    settle = len(y_ref) // 2
+    s = snr_db(y_ref[settle:], y[settle:])
+    log(f"compat: README AMRadio on tpudsp_torch.compat, {len(callbacks)} "
+        f"callbacks of {CALLBACK} samples -> {len(y)} pcm samples; vs float64 "
+        f"oracle chain {s:.2f} dB (bar 100); launches {launches}")
+    if not (y.shape == y_ref.shape and np.all(np.isfinite(y)) and s >= 100.0
+            and min(launches.values()) > 0):
+        raise AssertionError("compat AMRadio phase failed")
+
+    # the AGC op's Pallas route over three 4M-sample blocks, carried state
+    blocks = wire_blocks(3, BLOCK_4M, seed=6)["c64"]
+    agc = liquiddsp.AGC(throughput_mode=True, use_pallas=True)
+    agc.scale = 0.01
+    torch.cuda.synchronize()
+    agc_scan._launch.launches = 0                  # the path starts
+    outs = [agc(b) for b in blocks]
+    torch.cuda.synchronize()
+    n_agc = agc_scan._launch.launches              # ... and ends
+    finite = all(o.shape == (BLOCK_4M,) and np.all(np.isfinite(o)) for o in outs)
+    level = float(np.mean(np.abs(outs[-1][-100_000:])))
+    log(f"compat: AGC(throughput_mode=True, use_pallas=True) over 3 x 4M-sample "
+        f"blocks: finite {finite}, settled |y| {level:.5f} (scale 0.01), "
+        f"agc_scan launches {n_agc}")
+    if not (finite and n_agc > 0 and abs(level / 0.01 - 1) < 0.2):
+        raise AssertionError("compat AGC phase failed")
+    k = results["kernels"]
+    k.setdefault("agc_scan", {})["launches"] = launches["agc_scan"] + n_agc
+    k.setdefault("pll_scan", {})["launches"] = launches["pll_scan"]
+    results["callbacks"] = callbacks
+
+
+RADIO_STAGES = ("bandpass", "resample", "agc", "am", "audio_filter")
+
+
+def _timed_call(fn, times: list):
+    """fn, appending the host seconds of each call to ``times``."""
+    def call(*args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        times.append(time.perf_counter() - t0)
+        return out
+    return call
 
 
 def phase_timing():
     import torch
+    import tpudsp_torch.compat as liquiddsp
     from tpudsp_torch.chains.am import AMConfig, AMReceiver
+    from tpudsp_torch.cuda import agc_scan, pll_scan
     from tpudsp_torch.cuda import am_backend_scan as scan
-    block = 4_000_000
-    data = wire_blocks(6, block, seed=3)     # a distinct block every call
+    from tpudsp_torch.kernels import agc as kagc
+    from tpudsp_torch.kernels import pll as kpll
+    data = wire_blocks(6, BLOCK_4M, seed=3)     # a distinct block every call
     rates = {}
     for fmt in ("c64", "i16", "u8"):
-        rx = AMReceiver(AMConfig(), block, fmt, device="cuda")
-        blocks = [torch.from_numpy(b).cuda() for b in data[fmt]]
+        rx = AMReceiver(AMConfig(), BLOCK_4M, fmt, device=DEV)
+        blocks = [torch.from_numpy(b).to(DEV) for b in data[fmt]]
         rx(blocks[0])
         torch.cuda.synchronize()
         times = []
@@ -289,24 +543,68 @@ def phase_timing():
             times.append(time.perf_counter() - t0)
         med = statistics.median(times)
         spread = (max(times) - min(times)) / med
-        rates[fmt] = block / med
+        rates[fmt] = BLOCK_4M / med
         log(f"timing: AMReceiver {fmt} 4M-sample block: median {med * 1e3:.3f} ms "
-            f"of 5 (spread {spread * 100:.1f}%), {block / med / 1e6:.1f} Msamp/s")
-    results["rates"] = rates
-    x = torch.from_numpy(am_signal(N_OUT_4M, 48_000.0, 200.0, noise=0.003,
-                                   seed=1)[None]).cuda()
+            f"of 5 (spread {spread * 100:.1f}%), {BLOCK_4M / med / 1e6:.1f} Msamp/s")
+    # the AMRadio per callback (bytes in, pcm out), a distinct callback
+    # each; each stage's call is timed too (each returns numpy, so each
+    # ends synchronised with the card)
+    radio = am_radio_class(liquiddsp)()
+    stages = {s: [] for s in ("bytes_to_iq", *RADIO_STAGES)}
+    for s in RADIO_STAGES:
+        setattr(radio, s, _timed_call(getattr(radio, s), stages[s]))
+    b2iq = _timed_call(liquiddsp.bytes_to_iq, stages["bytes_to_iq"])
+    cbs = results["callbacks"]
+    radio(b2iq(cbs[0]))
+    times = []
+    for cb in cbs[1:6]:
+        t0 = time.perf_counter()
+        radio(b2iq(cb))
+        times.append(time.perf_counter() - t0)
+    med = statistics.median(times)
+    log(f"timing: README AMRadio callback of {CALLBACK} samples: median "
+        f"{med * 1e3:.3f} ms of 5 (spread {(max(times) - min(times)) / med * 100:.1f}%), "
+        f"{CALLBACK / med / 1e6:.1f} Msamp/s; per stage (median of 5, ms): "
+        + ", ".join(f"{s} {statistics.median(v[1:]) * 1e3:.3f}"
+                    for s, v in stages.items()))
+
+    counts = (scan._launch.launches, agc_scan._launch.launches,
+              pll_scan._launch.launches)
+    k = results["kernels"]
+    x, x4, xc = (results["inputs"][n] for n in ("x96k", "x4m", "xc"))
     p, st = front_params(), front_state(1)
-    before = scan._launch.launches
-    ms = _cuda_ms(lambda: scan.front_chunked(p, st, x, CHUNK, WARMUP), 20)
-    plain_ms = _cuda_ms(lambda: scan.front_chunked_ref(p, st, x, CHUNK, WARMUP), 1)
-    scan._launch.launches = before    # timing launches are not the main path's
-    results["ms"], results["plain_ms"] = ms, plain_ms
-    log(f"timing: am_front_scan C=1 L={N_OUT_4M} chunk={CHUNK} warmup={WARMUP}: "
-        f"kernel {ms:.4f} ms, plain PyTorch {plain_ms:.1f} ms")
+    k["am_front_scan"]["ms"] = _cuda_ms(
+        lambda: scan.front_chunked(p, st, x, CHUNK, WARMUP), 20)
+    bound("am_front_scan", N_OUT_4M * (8 + 4 + 4), N_OUT_4M * (OPS_AGC + OPS_PLL))
+    ap = kagc.make_params(alpha=0.01, scale=0.01, device=DEV)
+    ast = agc_state(1)
+    k["agc_scan"]["ms"] = _cuda_ms(lambda: agc_scan.agc_chunked_pallas(
+        ap, ast, x4, AGC_CHUNK, AGC_WARMUP), 10)
+    bound("agc_scan", BLOCK_4M * (8 + 8 + 4), BLOCK_4M * OPS_AGC)
+    k["agc_scan exact"]["ms"] = _cuda_ms(lambda: agc_scan.agc_exact(ap, ast, xc), 10)
+    z = lambda: torch.zeros(1, device=DEV)
+    pst = kpll.PllState(z(), z())
+    k["pll_scan"]["ms"] = _cuda_ms(lambda: pll_scan.pll_carrier_scan(pst, xc, 0.001), 10)
+    bound("pll_scan", N_CALLBACK_OUT * (8 + 4), N_CALLBACK_OUT * OPS_PLL)
+    pll96 = _cuda_ms(lambda: pll_scan.pll_carrier_scan(pst, x, 0.001), 5)
+    # timing launches are not a path's
+    scan._launch.launches, agc_scan._launch.launches, pll_scan._launch.launches = counts
+    for name, v in k.items():
+        log(f"timing: {name}: kernel {v['ms']:.4f} ms, plain PyTorch "
+            f"{v['plain_ms']:.1f} ms, bound {v.get('bound_ms', float('nan')):.6f} ms")
+    log(f"timing: pll_scan exact L={N_OUT_4M}: kernel {pll96:.4f} ms")
 
 
 PHASES = [("build", phase_build), ("kernel", phase_kernel), ("chain", phase_chain),
-          ("width", phase_width), ("timing", phase_timing)]
+          ("width", phase_width), ("compat", phase_compat), ("timing", phase_timing)]
+
+KERNELS = [
+    ("am_front_scan", "tpudsp_torch/csrc/am_front_scan.cu",
+     "tpudsp/pallas/am_backend_scan.py:41"),
+    ("agc_scan", "tpudsp_torch/csrc/agc_scan.cu", "tpudsp/pallas/agc_scan.py:37"),
+    # a lax.scan in the JAX package, not a Pallas kernel
+    ("pll_scan", "tpudsp_torch/csrc/pll_scan.cu", "tpudsp/kernels/pll.py:45"),
+]
 
 
 def main() -> int:
@@ -339,13 +637,13 @@ def main() -> int:
     if failed:
         print(f"chip_smoke.py: failed phases: {failed}", file=sys.stderr)
         return 1
+    k = results["kernels"]
     log(json.dumps({"kernels": [{
-        "name": "am_front_scan", "route": "cuda",
-        "source": "tpudsp_torch/csrc/am_front_scan.cu",
-        "replaces": "tpudsp/pallas/am_backend_scan.py:41",
-        "launches": results["launches"]["am_front_scan"],
-        "max_abs_err": results["main_err"],
-        "ms": results["ms"], "plain_ms": results["plain_ms"]}]}))
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": k[name]["launches"], "max_abs_err": k[name]["max_abs_err"],
+        "ms": k[name]["ms"], "plain_ms": k[name]["plain_ms"],
+        "bound_ms": k[name]["bound_ms"], "bound_by": k[name]["bound_by"],
+        "library_ms": None} for name, source, replaces in KERNELS]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

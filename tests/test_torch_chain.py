@@ -30,7 +30,7 @@ def _iq():
 def outputs():
     iq = _iq()
     out = {"oracle": oracle_am_chain(iq.astype(np.complex128), jam.AMConfig())}
-    rx = tam.AMReceiver(tam.AMConfig(), BLOCK)
+    rx = tam.AMReceiver(tam.AMConfig(), BLOCK, device="cpu")
     out["port"] = torch.cat([rx(torch.from_numpy(iq[:BLOCK])),
                              rx(torch.from_numpy(iq[BLOCK:]))]).numpy()
     out["port_metrics"] = rx.metrics
@@ -78,8 +78,8 @@ def test_from_jax_reproduces_build(fmt):
     bit, and from_jax carries params and state over leaf for leaf."""
     block = 250_000
     jp, js, _ = jam.build(jam.AMConfig(), block, fmt)
-    tp, ts, _ = tam.build(tam.AMConfig(), block, fmt)
-    cp, cs = convert.from_jax(jp, js)
+    tp, ts, _ = tam.build(tam.AMConfig(), block, fmt, device="cpu")
+    cp, cs = convert.from_jax(jp, js, device="cpu")
     for tree_port, tree_conv in ((tp, cp), (ts, cs)):
         leaves_p = _leaves(tree_port)
         leaves_c = _leaves(tree_conv)
@@ -114,7 +114,7 @@ def test_squelch_events_match_tpudsp():
 def test_receiver_options_not_ported_raise():
     for kw in (dict(plan="composed"), dict(exact=True), dict(backend="xla")):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            tam.AMReceiver(tam.AMConfig(), 50_000, **kw)
+            tam.AMReceiver(tam.AMConfig(), 50_000, device="cpu", **kw)
 
 
 def test_receiver_launches_no_kernel_on_cpu(outputs):

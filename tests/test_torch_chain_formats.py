@@ -31,7 +31,8 @@ def _wire():
 
 
 def _run(fmt, x):
-    rx = tam.AMReceiver(tam.AMConfig(), BLOCK, "c64" if fmt.startswith("c64") else fmt)
+    rx = tam.AMReceiver(tam.AMConfig(), BLOCK,
+                        "c64" if fmt.startswith("c64") else fmt, device="cpu")
     return torch.cat([rx(torch.from_numpy(x[:BLOCK])),
                       rx(torch.from_numpy(x[BLOCK:]))]).numpy()
 
@@ -53,7 +54,7 @@ def test_raw_formats_match_c64(wire, fmt, ref):
 @pytest.mark.parametrize("fmt,dtype", [("i16", np.uint8), ("u8", np.int16),
                                        ("c64", None)])
 def test_wrong_wire_type_raises(fmt, dtype):
-    rx = tam.AMReceiver(tam.AMConfig(), 50_000, fmt)
+    rx = tam.AMReceiver(tam.AMConfig(), 50_000, fmt, device="cpu")
     bad = (np.zeros((50_000, 2), dtype) if dtype is not None
            else np.zeros((50_000, 2), np.complex64))
     with pytest.raises(TypeError):

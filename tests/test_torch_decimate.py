@@ -36,7 +36,7 @@ def test_fused_frontend_matches_tpudsp(fmt):
     cfg = jam.AMConfig()
     P, Q = jam._rational(cfg.rate)
     jp, js, n_out = jam.build(cfg, BLOCK, fmt)
-    tp, ts, _ = tam.build(tam.AMConfig(), BLOCK, fmt)
+    tp, ts, _ = tam.build(tam.AMConfig(), BLOCK, fmt, device="cpu")
     nj = n_out // P
     jtail, ttail = js.rs_tail, ts.rs_tail
     for blk in range(2):
@@ -65,5 +65,5 @@ def test_fused_frontend_matches_tpudsp(fmt):
 def test_plan_fused_frontend_equal():
     cfg = jam.AMConfig()
     jp, _, _ = jam.build(cfg, BLOCK)
-    tp, _, _ = tam.build(tam.AMConfig(), BLOCK)
+    tp, _, _ = tam.build(tam.AMConfig(), BLOCK, device="cpu")
     np.testing.assert_array_equal(tp.taps_fused.numpy(), np.asarray(jp.taps_fused))

@@ -54,3 +54,23 @@ def test_tf2sos_equal():
 @pytest.mark.parametrize("rate", [48000.0, 44100.0, 32000.0])
 def test_deemphasis_coeffs_equal(rate):
     assert tiir.deemphasis_coeffs(rate) == jiir.deemphasis_coeffs(rate)
+
+
+@pytest.mark.parametrize("m,As", [(25, 20.0), (64, 40.0), (5, 60.0)])
+def test_dc_blocker_equal(m, As):
+    _same(tfir.dc_blocker(m, As), jfir.dc_blocker(m, As))
+
+
+@pytest.mark.parametrize("rate", [0.024, 0.5, 2.0, 1e-5])
+def test_default_resamp_params_equal(rate):
+    assert tfir.default_resamp_params(rate) == jfir.default_resamp_params(rate)
+
+
+def test_freqresponses_equal():
+    f = np.linspace(0.0, 0.5, 17)
+    h = jfir.kaiser_lowpass(51, 0.1, 60.0)
+    _same(tfir.freqresponse(h, f), jfir.freqresponse(h, f))
+    assert tfir.freqresponse(h, 0.1) == jfir.freqresponse(h, 0.1)
+    sos = jiir.iirdes_sos("cheby2", "lowpass", 8, 0.0075, As=60.0)
+    _same(tiir.sos_freqresponse(sos, f), jiir.sos_freqresponse(sos, f))
+    assert tiir.sos_freqresponse(sos, 0.0) == jiir.sos_freqresponse(sos, 0.0)

@@ -1,7 +1,8 @@
 """tpudsp_torch -- the PyTorch/CUDA port of tpudsp for NVIDIA Hopper.
 
 The package mirrors ``tpudsp``'s module names (``design``, ``kernels``,
-``chains``), so every counterpart sits at the same path. ``tpudsp`` stays
+``chains``, ``ops``, ``compat``), so every counterpart sits at the same
+path. ``tpudsp`` stays
 the numerical reference the port is tested against; this package imports
 ``torch`` and never ``jax``.
 
@@ -14,7 +15,11 @@ and launches the kernel (or raises) when it lies on a CUDA device.
 Ported so far: the fused single-channel AM receiver
 (``chains.am.AMReceiver``) on c64, i16 and u8 input, with the AGC +
 squelch + carrier-PLL feedback core as the CUDA kernel
-``csrc/am_front_scan.cu``.
+``csrc/am_front_scan.cu``; and the reference class surface the README's
+AMRadio uses (``compat``: AGC, the IIR / FIR filters, the resamplers,
+AmpModem, bytes_to_iq), with the AGC scan (``csrc/agc_scan.cu``) and the
+carrier-PLL scan (``csrc/pll_scan.cu``) as CUDA kernels. Everything runs
+on the card ("cuda") unless the caller asks for the CPU.
 """
 
 from .chains.am import AMConfig, AMReceiver  # noqa: F401

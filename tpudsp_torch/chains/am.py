@@ -100,8 +100,9 @@ def _rational(rate: float, max_den: int = 10000):
 
 
 def build(cfg: AMConfig, block_len: int, input_format: str = "c64",
-          device=None):
-    """Design-time: build (params, init_state, n_out) on ``device``.
+          device="cuda"):
+    """Design-time: build (params, init_state, n_out) on ``device`` (the
+    card unless the caller asks for the CPU).
     block_len * rate must be integral. The design runs on the host in
     float64 exactly as the JAX package's ``build``; tensors are made once.
 
@@ -174,7 +175,7 @@ def build(cfg: AMConfig, block_len: int, input_format: str = "c64",
         rs_tail=rs_tail,
         agc=kagc.agc_init(squelch=cfg.squelch, timeout=cfg.squelch_timeout,
                           device=device),
-        am=kam.ampdemod_init(device),
+        am=kam.ampdemod_init(device=device),
         deemph=torch.tensor(0.0, dtype=torch.float32, device=device),
     )
     return params, state, n_out
@@ -208,7 +209,8 @@ def _back_end(params: AMParams, state: AMState, baseband, cfg: AMConfig,
                             dc=state.am.dc, deemph=state.deemph)
     st, (pcm, modes) = am_backend_chunked(
         p, st, baseband, kwarm.chunk_for(warmup), warmup=warmup)
-    return st.agc, kam.AmpDemodState(pll=st.pll, dc=st.dc), st.deemph, pcm, modes
+    am = kam.AmpDemodState(pll=st.pll, dc=st.dc, c2r=state.am.c2r)
+    return st.agc, am, st.deemph, pcm, modes
 
 
 def am_step_fused(params: AMParams, state: AMState, iq, *, cfg: AMConfig,
@@ -257,7 +259,8 @@ class AMReceiver(nn.Module):
 
     ``AMReceiver(cfg, block_len, input_format, device=...)`` builds the
     design on the host and keeps ``AMParams`` as registered buffers on
-    ``device`` (``params`` reassembles them). The carried ``state`` lives
+    ``device`` (``params`` reassembles them): the card ("cuda") unless the
+    caller asks for the CPU. The carried ``state`` lives
     on the same device; move a receiver by building a new one there (or
     with ``convert.from_jax``), since ``.to()`` moves buffers only.
     Calling it on one block returns the block's pcm (f32) and leaves the
@@ -269,7 +272,8 @@ class AMReceiver(nn.Module):
 
     def __init__(self, cfg: AMConfig = AMConfig(), block_len: int = 1_000_000,
                  input_format: str = "c64", *, plan: str = "fused",
-                 exact: bool = False, backend: str = "kernel", device=None):
+                 exact: bool = False, backend: str = "kernel",
+                 device="cuda"):
         super().__init__()
         if plan != "fused":
             raise NotImplementedError(f"plan={plan!r} is not ported yet "

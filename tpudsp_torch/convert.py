@@ -3,27 +3,48 @@
 ``from_jax`` reads every leaf of the JAX package's ``AMParams`` /
 ``AMState`` with ``np.asarray`` and makes the port's tensors from it, so a
 stream can move from a ``tpudsp`` receiver to a ``tpudsp_torch`` one
-mid-flight. It imports no jax: the JAX objects are only read by attribute.
-The demod state's c2r Hilbert leaves are dropped (the port's dsb chain has
-none, kernels/ampmodem.py).
+mid-flight. ``op_state_from_jax`` does the same for an op of the
+reference class surface: it turns a ``tpudsp.compat`` op's ``.state`` (a
+host numpy pytree) into the state of its ``tpudsp_torch.compat`` twin,
+for ``with_state``. Neither imports jax: the JAX objects are only read by
+attribute and type name.
 """
 
 from __future__ import annotations
 
-import numpy as np
-import torch
-
 from .chains.am import AMParams, AMState
 from .kernels.agc import AgcParams, AgcState
 from .kernels.ampmodem import AmpDemodState
+from .kernels.hilbert import C2RState
 from .kernels.pll import PllState
+from .ops.base import to_tensor
+
+# the port's state types, by the name of their JAX twins
+_STATE_TYPES = {T.__name__: T for T in (AgcState, AmpDemodState, C2RState,
+                                        PllState)}
 
 
 def _t(v, device):
-    return None if v is None else torch.from_numpy(np.array(v)).to(device)
+    return None if v is None else to_tensor(v, device)
 
 
-def from_jax(params, state, device=None):
+def op_state_from_jax(state, device="cuda"):
+    """A JAX op's ``.state`` -> the port op's state on ``device``: every
+    array leaf becomes a tensor with its dtype kept, every NamedTuple its
+    port twin of the same name and fields, dicts stay dicts and Python
+    scalars (a resampler's ``tau``) stay as they are."""
+    if isinstance(state, dict):
+        return {k: op_state_from_jax(v, device) for k, v in state.items()}
+    if isinstance(state, tuple) and hasattr(state, "_fields"):
+        T = _STATE_TYPES[type(state).__name__]
+        return T(*(op_state_from_jax(getattr(state, f), device)
+                   for f in T._fields))
+    if isinstance(state, (float, int)):
+        return state
+    return _t(state, device)
+
+
+def from_jax(params, state, device="cuda"):
     """JAX ``AMParams``, ``AMState`` -> the port's (AMParams, AMState) on
     ``device``, leaf for leaf with dtypes kept."""
     t = lambda v: _t(v, device)
@@ -33,10 +54,8 @@ def from_jax(params, state, device=None):
     new_state = AMState(
         fir_tail=t(state.fir_tail),
         rs_tail=t(state.rs_tail),
-        agc=AgcState(*(t(getattr(state.agc, f)) for f in AgcState._fields)),
-        am=AmpDemodState(pll=PllState(t(state.am.pll.theta),
-                                      t(state.am.pll.freq)),
-                         dc=t(state.am.dc)),
+        agc=op_state_from_jax(state.agc, device),
+        am=op_state_from_jax(state.am, device),
         deemph=t(state.deemph),
     )
     return new_params, new_state

@@ -25,12 +25,15 @@ from __future__ import annotations
 import torch
 
 from ..kernels import am_backend as kab
+from ..kernels import lanes
 from ..kernels.agc import AgcState
 from ..kernels.am_backend import (
     AmBackendParams, AmBackendState, FrontState, linear_tail,
 )
 from ..kernels.pll import PllState
-from . import build
+from . import launch
+
+KERNEL = "am_front_scan"
 
 
 def _scalars(p: AmBackendParams):
@@ -42,14 +45,6 @@ def _scalars(p: AmBackendParams):
     ])
 
 
-def _check(t, dtype, shape, device, name):
-    if t.device != device or t.dtype != dtype or tuple(t.shape) != shape:
-        raise ValueError(f"am_front_scan: {name} must be {dtype} {shape} on "
-                         f"{device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
-    if not t.is_contiguous():
-        raise ValueError(f"am_front_scan: {name} must be contiguous")
-
-
 def _launch(p: AmBackendParams, st: FrontState, xre, xim, nchunks: int,
             warmup: int):
     """Launch am_front_scan on (chunk, lanes) f32 planes xre/xim (lane
@@ -57,70 +52,33 @@ def _launch(p: AmBackendParams, st: FrontState, xre, xim, nchunks: int,
     (vr (chunk, lanes) f32, modes (chunk, lanes) i32, FrontState of
     per-lane final states)."""
     dev = xre.device
-    if dev.type != "cuda":
-        raise ValueError(f"am_front_scan runs on CUDA tensors, got {dev}")
-    chunk, lanes = xre.shape
-    if lanes % nchunks:
-        raise ValueError(f"am_front_scan: {lanes} lanes is not a whole "
+    launch.on_cuda(KERNEL, dev)
+    chunk, lanes_ = xre.shape
+    if lanes_ % nchunks:
+        raise ValueError(f"{KERNEL}: {lanes_} lanes is not a whole "
                          f"number of streams of {nchunks} chunks")
-    C = lanes // nchunks
+    C = lanes_ // nchunks
     f32, i32 = torch.float32, torch.int32
-    _check(xre, f32, (chunk, lanes), dev, "xre")
-    _check(xim, f32, (chunk, lanes), dev, "xim")
+    launch.check(KERNEL, "xre", xre, f32, (chunk, lanes_), dev)
+    launch.check(KERNEL, "xim", xim, f32, (chunk, lanes_), dev)
     init = [st.agc.g, st.agc.y2p, st.agc.sq_mode, st.agc.sq_timer,
             st.pll.theta, st.pll.freq]
     dtypes = [f32, f32, i32, i32, f32, f32]
     for t, dt, name in zip(init, dtypes, ("g", "y2p", "sq_mode", "sq_timer",
                                           "theta", "freq")):
-        _check(t, dt, (C,), dev, name)
+        launch.check(KERNEL, name, t, dt, (C,), dev)
     scal = _scalars(p)
-    _check(scal, f32, (9,), dev, "scalars")
-    vr = torch.empty((chunk, lanes), dtype=f32, device=dev)
-    modes = torch.empty((chunk, lanes), dtype=i32, device=dev)
-    fin = [torch.empty((lanes,), dtype=dt, device=dev) for dt in dtypes]
-    lib = build.load("am_front_scan")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.am_front_scan(
-            scal.data_ptr(), xre.data_ptr(), xim.data_ptr(),
-            *(t.data_ptr() for t in init),
-            vr.data_ptr(), modes.data_ptr(), *(t.data_ptr() for t in fin),
-            lanes, nchunks, chunk, warmup, stream)
-    if rc != 0:
-        raise RuntimeError(f"am_front_scan launch failed: CUDA error {rc}")
+    launch.check(KERNEL, "scalars", scal, f32, (9,), dev)
+    vr = torch.empty((chunk, lanes_), dtype=f32, device=dev)
+    modes = torch.empty((chunk, lanes_), dtype=i32, device=dev)
+    fin = [torch.empty((lanes_,), dtype=dt, device=dev) for dt in dtypes]
+    launch.launch(KERNEL, dev, scal, xre, xim, *init, vr, modes, *fin,
+                  lanes_, nchunks, chunk, warmup)
     _launch.launches += 1
     return vr, modes, FrontState(AgcState(*fin[:4]), PllState(*fin[4:]))
 
 
 _launch.launches = 0
-
-
-def _planes(x, chunk: int):
-    """x (C, L) complex64 -> zero-padded (chunk, C*nchunks) re and im
-    planes (lane c*nchunks + i holds chunk i of stream c), nchunks, pad."""
-    C, L = x.shape
-    nchunks = -(-L // chunk)
-    pad = nchunks * chunk - L
-    xp = torch.nn.functional.pad(torch.view_as_real(x), (0, 0, 0, pad))
-    planes = xp.reshape(C * nchunks, chunk, 2).permute(2, 1, 0).contiguous()
-    return planes[0], planes[1], nchunks, pad
-
-
-def _unplanes(v, C: int, L: int):
-    """(chunk, C*nchunks) plane -> (C, L) in stream order."""
-    return v.T.reshape(C, -1)[:, :L]
-
-
-def _per_stream(front: FrontState, C: int, k: int) -> FrontState:
-    """Per-lane final states -> chunk k (e.g. -1, the last) of each stream."""
-    return FrontState(*(type(s)(*(v.reshape(C, -1)[:, k].contiguous()
-                                  for v in s)) for s in front))
-
-
-def _lanes(st: FrontState, nchunks: int) -> FrontState:
-    """Per-stream state leaves (C,) -> per-lane (C*nchunks,)."""
-    return FrontState(*(type(s)(*(v.repeat_interleave(nchunks) for v in s))
-                        for s in st))
 
 
 def front_exact(p: AmBackendParams, st: FrontState, x):
@@ -130,7 +88,7 @@ def front_exact(p: AmBackendParams, st: FrontState, x):
     if x.device.type == "cpu":
         return kab.front_exact(p, st, x)
     C, L = x.shape
-    xre, xim, _, _ = _planes(x, L)
+    xre, xim, _, _ = lanes.planes(x, L)
     vr, modes, fin = _launch(p, st, xre, xim, 1, 0)
     return fin, (vr.T, modes.T)
 
@@ -146,16 +104,16 @@ def front_chunked(p: AmBackendParams, st: FrontState, x, chunk: int,
     C, L = x.shape
     if L <= chunk + warmup:
         return front_exact(p, st, x)
-    xre, xim, nchunks, pad = _planes(x, chunk)
+    xre, xim, nchunks, pad = lanes.planes(x, chunk)
     vr, modes, fin = _launch(p, st, xre, xim, nchunks, warmup)
-    front = _per_stream(fin, C, -1)
+    front = lanes.per_stream(fin, C, -1)
     if pad:
         # the last chunk of every stream was zero-padded: re-derive each
         # stream's carried state exactly from its unpadded tail, starting
         # from the state the previous chunk ended in
-        front, _ = front_exact(p, _per_stream(fin, C, -2),
+        front, _ = front_exact(p, lanes.per_stream(fin, C, -2),
                                x[:, (nchunks - 1) * chunk:])
-    return front, (_unplanes(vr, C, L), _unplanes(modes, C, L))
+    return front, (lanes.unplanes(vr, C, L), lanes.unplanes(modes, C, L))
 
 
 def front_chunked_ref(p: AmBackendParams, st: FrontState, x, chunk: int,
@@ -163,41 +121,20 @@ def front_chunked_ref(p: AmBackendParams, st: FrontState, x, chunk: int,
     """The plain PyTorch version of ``front_chunked``: the same lanes, the
     same warmup windows (materialised here, with a per-lane validity start)
     and the same tail fix, as a Python loop over the steps of
-    kernels/am_backend.front_sample_step on lane vectors. Runs on any
-    device; it launches no kernel."""
+    kernels/am_backend.front_sample_step on lane vectors
+    (kernels/lanes.chunked_scan). Runs on any device; it launches no
+    kernel."""
     C, L = x.shape
     if L <= chunk + warmup:
         return kab.front_exact(p, st, x)
-    xre, xim, nchunks, pad = _planes(x, chunk)
-    dev = x.device
-    # warmup window of lane (c, i): stream samples [i*chunk - warmup,
-    # i*chunk), zeros before the stream's start (masked out below)
-    flat = torch.nn.functional.pad(torch.view_as_real(x),
-                                   (0, 0, warmup, nchunks * chunk - L))
-    widx = (torch.arange(nchunks, device=dev) * chunk)[:, None] \
-        + torch.arange(warmup, device=dev)[None, :]
-    win = flat[:, widx].reshape(C * nchunks, warmup, 2).permute(2, 1, 0)
-    ci = torch.arange(nchunks, device=dev).repeat(C)
-    t_start = warmup - torch.clamp_max(ci * chunk, warmup)
-
-    lane_st = _lanes(st, nchunks)
-    for t in range(warmup):
-        st2, _ = kab.front_sample_step(p, lane_st, win[0, t], win[1, t])
-        valid = t >= t_start
-        lane_st = FrontState(*(type(s2)(*(torch.where(valid, a, b)
-                                          for a, b in zip(s2, s1)))
-                               for s2, s1 in zip(st2, lane_st)))
-    vrs, modes = [], []
-    for t in range(chunk):
-        lane_st, (vr, mode) = kab.front_sample_step(p, lane_st, xre[t], xim[t])
-        vrs.append(vr)
-        modes.append(mode)
-    vr, modes = torch.stack(vrs), torch.stack(modes)
-    front = _per_stream(lane_st, C, -1)
+    _, final, (vr, modes), nchunks, pad = lanes.chunked_scan(
+        lambda s, xr, xi: kab.front_sample_step(p, s, xr, xi), st, x, chunk,
+        warmup)
+    front = lanes.per_stream(final, C, -1)
     if pad:
-        front, _ = kab.front_exact(p, _per_stream(lane_st, C, -2),
+        front, _ = kab.front_exact(p, lanes.per_stream(final, C, -2),
                                    x[:, (nchunks - 1) * chunk:])
-    return front, (_unplanes(vr, C, L), _unplanes(modes, C, L))
+    return front, (lanes.unplanes(vr, C, L), lanes.unplanes(modes, C, L))
 
 
 def am_backend_chunked(p: AmBackendParams, state: AmBackendState, x,
@@ -209,10 +146,9 @@ def am_backend_chunked(p: AmBackendParams, state: AmBackendState, x,
     (one kernel lane on CUDA) and the same linear tail, where the JAX
     package runs its serial am_backend_exact. Returns (state, (pcm,
     modes))."""
-    st1 = FrontState(*(type(s)(*(v.reshape(1) for v in s))
-                       for s in (state.agc, state.pll)))
+    st1 = lanes.one_stream(FrontState(state.agc, state.pll))
     front, (vr, modes) = front_chunked(p, st1, x[None], chunk, warmup)
-    front = FrontState(*(type(s)(*(v[0] for v in s)) for s in front))
+    front = lanes.first_stream(front)
     (dc_last, de_last), pcm = linear_tail(p, state.dc, state.deemph, vr[0])
     new_state = AmBackendState(agc=front.agc, pll=front.pll,
                                dc=dc_last, deemph=de_last)

@@ -9,7 +9,8 @@ by ``nvcc`` (no PyTorch headers, so a build takes seconds) into
 
 ``-fmad=false`` keeps every multiply and add rounded on its own, as the
 plain PyTorch versions round them; there is no ``--use_fast_math``.
-A library is rebuilt when its source is newer than it.
+A library is rebuilt when its source, or any header in ``csrc/`` (the
+sources share ``scan_step.cuh``), is newer than it.
 """
 
 from __future__ import annotations
@@ -32,6 +33,12 @@ _I = ctypes.c_int
 SIGNATURES = {
     "am_front_scan": {
         "am_front_scan": [_P] * 17 + [_I] * 4 + [_P],
+    },
+    "agc_scan": {
+        "agc_scan": [_P] * 14 + [_I] * 4 + [_P],
+    },
+    "pll_scan": {
+        "pll_scan": [_P] * 8 + [_I] * 4 + [_P],
     },
 }
 
@@ -56,7 +63,8 @@ def compile_source(name: str) -> Path:
     Returns the library's path; raises with nvcc's output on failure."""
     src = CSRC / f"{name}.cu"
     out = BUILD / f"lib{name}.so"
-    if out.exists() and out.stat().st_mtime >= src.stat().st_mtime:
+    newest = max(p.stat().st_mtime for p in [src, *CSRC.glob("*.cuh")])
+    if out.exists() and out.stat().st_mtime >= newest:
         return out
     BUILD.mkdir(exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")

@@ -1,8 +1,9 @@
 """Host-side FIR filter design (float64 NumPy).
 
 A verbatim copy of the designers of ``tpudsp/design/firdes.py`` that the
-ported AM receiver needs: the Kaiser lowpass, the Hilbert FIR and the
-polyphase resampler bank. ``tpudsp.design`` cannot be imported here,
+port needs: the Kaiser lowpass, the DC blocker, the Hilbert FIR, the
+polyphase resampler bank with its default parameters, and the FIR
+frequency response. ``tpudsp.design`` cannot be imported here,
 because ``tpudsp/__init__.py`` imports jax; tests/test_torch_design.py
 holds these copies equal to the originals bit for bit.
 """
@@ -40,6 +41,26 @@ def kaiser_lowpass(n: int, fc: float, As: float = 60.0, mu: float = 0.0) -> np.n
     h = 2.0 * fc * np.sinc(2.0 * fc * t)
     w = np.kaiser(n, beta)
     return (h * w).astype(np.float64)
+
+
+def dc_blocker(m: int, As: float = 20.0) -> np.ndarray:
+    """DC-blocking FIR of length 2*m+1 (liquid firfilt_rrrf_create_dc_blocker
+    equivalent, reference firfilter.hpp:43).
+
+    Built as delta minus a narrow unity-DC-gain lowpass: the notch width is
+    set by the narrowest lowpass realizable at length 2*m+1 for the requested
+    stopband As (Kaiser transition-width estimate).
+    """
+    n = 2 * m + 1
+    # Narrowest realizable cutoff for this length/attenuation (Kaiser estimate:
+    # transition width df = (As - 7.95) / (14.36 * (n-1))).
+    df = (max(abs(As), 12.0) - 7.95) / (14.36 * (n - 1))
+    fc = float(np.clip(df, 5e-4, 0.2))
+    h_lp = kaiser_lowpass(n, fc, As)
+    h_lp /= h_lp.sum()  # exact unity DC gain for the lowpass branch
+    h = -h_lp
+    h[m] += 1.0
+    return h
 
 
 def hilbert_fir(m: int, As: float = 60.0) -> np.ndarray:
@@ -91,4 +112,29 @@ def resamp_bank(m: int, fc: float, As: float, npfb: int) -> np.ndarray:
     idx = b[:, None] + (2 * m - i)[None, :] * npfb
     idx = np.clip(idx, 0, len(hp) - 1)
     H = hp[idx]
+    return H
+
+
+def default_resamp_params(rate: float) -> tuple[int, float, float, int]:
+    """Parameters for the default-designed resampler
+    (liquid resamp_*_create_default equivalent, reference resampler.hpp:12,47):
+    semi-length m=7, stopband 60 dB, 64 polyphase banks, anti-alias cutoff at
+    45% of the narrower of input/output Nyquist."""
+    m = 7
+    As = 60.0
+    npfb = 64
+    fc = 0.45 * min(1.0, float(rate))
+    fc = float(np.clip(fc, 1e-4, 0.45))
+    return m, fc, As, npfb
+
+
+def freqresponse(h: np.ndarray, f) -> np.ndarray | complex:
+    """Frequency response H(e^{j2 pi f}) of FIR taps ``h`` at frequency/ies
+    ``f`` (cycles/sample). Matches liquid firfilt_*_freqresponse semantics
+    (reference firfilter.hpp:23-27): H(f) = sum_k h[k] e^{-j 2 pi f k}."""
+    f_arr = np.atleast_1d(np.asarray(f, dtype=np.float64))
+    k = np.arange(len(h))
+    H = np.exp(-2j * np.pi * f_arr[:, None] * k[None, :]) @ np.asarray(h)
+    if np.isscalar(f) or np.asarray(f).ndim == 0:
+        return complex(H[0])
     return H

@@ -1,9 +1,9 @@
 """Host-side IIR filter design (float64, SciPy-backed).
 
-A copy of the designers of ``tpudsp/design/iirdes.py`` that the ported AM
-receiver needs: analog prototype (butter/cheby1/cheby2/ellip/bessel) ->
-bilinear transform -> second-order-section cascade, its truncated impulse
-response, and the de-emphasis one-pole. tests/test_torch_design.py holds
+A copy of the designers of ``tpudsp/design/iirdes.py`` that the port
+needs: analog prototype (butter/cheby1/cheby2/ellip/bessel) -> bilinear
+transform -> second-order-section cascade, its frequency response and
+truncated impulse response, and the de-emphasis one-pole. tests/test_torch_design.py holds
 them equal to the originals bit for bit.
 
 Band-type semantics:
@@ -96,6 +96,17 @@ def deemphasis_coeffs(sample_rate: float, tau: float = 75e-6) -> tuple[float, fl
     x = exp(-1/(tau * sample_rate)), i.e. b0 = 1-x, a = [1, -x]."""
     x = float(np.exp(-1.0 / (tau * float(sample_rate))))
     return 1.0 - x, x
+
+
+def sos_freqresponse(sos: np.ndarray, f) -> np.ndarray | complex:
+    """H(e^{j 2 pi f}) of an SOS cascade at frequency/ies ``f`` in
+    cycles/sample (liquid iirfilt_*_freqresponse semantics,
+    reference iirfilter.hpp:46-50)."""
+    f_arr = np.atleast_1d(np.asarray(f, dtype=np.float64))
+    _, H = sig.sosfreqz(np.asarray(sos), worN=2.0 * np.pi * f_arr, fs=2.0 * np.pi)
+    if np.isscalar(f) or np.asarray(f).ndim == 0:
+        return complex(H[0])
+    return H
 
 
 def sos_impulse_response(

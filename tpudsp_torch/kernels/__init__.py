@@ -1,5 +1,8 @@
 """Pure (params, state, block) -> (state, block) functions on tensors: the
-counterparts of ``tpudsp.kernels``, in plain PyTorch."""
+counterparts of ``tpudsp.kernels``, in plain PyTorch. The sequential scans
+here are the plain versions of the CUDA kernels in ``cuda/``;
+``ampmodem.ampdemod_apply`` reaches its carrier-PLL kernel through
+``cuda/pll_scan``."""
 
 import torch
 

@@ -26,7 +26,6 @@ blocked first-order scans (``linear_tail``).
 
 from __future__ import annotations
 
-import math
 from typing import NamedTuple
 
 import numpy as np
@@ -34,10 +33,11 @@ import torch
 
 from . import agc as kagc
 from . import iir as kiir
-from .agc import AgcParams, AgcState, _fsm_step
+from . import lanes
+from .agc import AgcParams, AgcState
 from .ampmodem import DC_RHO, PLL_BW
 from .fastmath import patan2
-from .pll import PllState
+from .pll import PllState, wrap
 
 
 class AmBackendState(NamedTuple):
@@ -98,31 +98,16 @@ class FrontState(NamedTuple):
 def front_sample_step(p: AmBackendParams, st: FrontState, xr, xi):
     """The FEEDBACK part only (AGC + carrier PLL) -> per-sample vr = Re(v)
     and the squelch mode. Works on scalars or lane vectors."""
-    g, y2p, mode, timer = st.agc
+    agc, (outr, outi, mode) = kagc.sample_step(p.agc, st.agc, xr, xi)
     theta, freq = st.pll
-    yr = xr * g
-    yi = xi * g
-    y2 = yr * yr + yi * yi
-    y2p = (1.0 - p.agc.alpha) * y2p + p.agc.alpha * y2
-    g_new = torch.clamp_max(
-        g * torch.exp(-0.5 * p.agc.alpha * torch.log(y2p + 1e-30)), 1e6)
-    g = torch.where(p.agc.locked, g, g_new)
-    rssi = -20.0 * torch.log10(torch.clamp_min(g, 1e-30))
-    high = rssi > p.agc.threshold
-    mode, timer = _fsm_step(mode, timer, high, p.agc.timeout, p.agc.squelch)
-    zero = (mode == kagc.SQ_ENABLED) | (mode == kagc.SQ_SIGNALLO)
-    outr = torch.where(zero, 0.0, yr * p.agc.scale)
-    outi = torch.where(zero, 0.0, yi * p.agc.scale)
     c = torch.cos(theta)
     s = torch.sin(theta)
     vr = outr * c + outi * s
     vi = outi * c - outr * s
     err = patan2(vi, vr) * p.use_pll
     freq = freq + p.pll_alpha * err
-    # floor-mod with the divisor's sign, as jnp.mod (torch.fmod is not)
-    theta = torch.remainder(theta + p.pll_beta * err + freq + math.pi,
-                            2.0 * math.pi) - math.pi
-    return FrontState(AgcState(g, y2p, mode, timer), PllState(theta, freq)), (vr, mode)
+    theta = wrap(theta + p.pll_beta * err + freq)
+    return FrontState(agc, PllState(theta, freq)), (vr, mode)
 
 
 def front_exact(p: AmBackendParams, st: FrontState, x):
@@ -130,14 +115,8 @@ def front_exact(p: AmBackendParams, st: FrontState, x):
     the samples on the last axis. x: (..., N) complex64 with state leaves
     shaped like x[..., 0]. Returns (FrontState, (vr, modes)) shaped like x.
     (``cuda/am_backend_scan.front_exact`` runs it as a kernel on CUDA.)"""
-    xr = x.real.float()
-    xi = x.imag.float()
-    vrs, modes = [], []
-    for t in range(x.shape[-1]):
-        st, (vr, mode) = front_sample_step(p, st, xr[..., t], xi[..., t])
-        vrs.append(vr)
-        modes.append(mode)
-    return st, (torch.stack(vrs, -1), torch.stack(modes, -1))
+    return lanes.exact_scan(lambda s, xr, xi: front_sample_step(p, s, xr, xi),
+                            st, x)
 
 
 def front_chunked(p: AmBackendParams, st: FrontState, x, chunk: int,
@@ -148,10 +127,9 @@ def front_chunked(p: AmBackendParams, st: FrontState, x, chunk: int,
     Derive ``warmup`` with kernels/warmup.warmup_for."""
     # imported here: cuda/am_backend_scan imports this module
     from ..cuda.am_backend_scan import front_chunked as batched
-    st1 = FrontState(*(type(s)(*(v.reshape(1) for v in s)) for s in st))
-    front, (vr, modes) = batched(p, st1, x[None], chunk, warmup)
-    front = FrontState(*(type(s)(*(v[0] for v in s)) for s in front))
-    return front, (vr[0], modes[0])
+    front, (vr, modes) = batched(p, lanes.one_stream(st), x[None], chunk,
+                                 warmup)
+    return lanes.first_stream(front), (vr[0], modes[0])
 
 
 def sample_step(p: AmBackendParams, st: AmBackendState, xr, xi):
@@ -170,14 +148,8 @@ def sample_step(p: AmBackendParams, st: AmBackendState, xr, xi):
 def am_backend_exact(p: AmBackendParams, st: AmBackendState, x):
     """Exact sequential combined back end, a Python loop over x (N,)
     complex64. Returns (state, (pcm, modes))."""
-    xr = x.real.float()
-    xi = x.imag.float()
-    pcms, modes = [], []
-    for t in range(x.shape[-1]):
-        st, (pcm, mode) = sample_step(p, st, xr[t], xi[t])
-        pcms.append(pcm)
-        modes.append(mode)
-    return st, (torch.stack(pcms), torch.stack(modes))
+    return lanes.exact_scan(lambda s, xr, xi: sample_step(p, s, xr, xi),
+                            st, x)
 
 
 def linear_tail(p: AmBackendParams, dc0, de0, vr):

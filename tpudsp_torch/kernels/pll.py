@@ -1,15 +1,31 @@
-"""Carrier-PLL state (port of ``tpudsp/kernels/pll.py``).
+"""Carrier-PLL state and scans (port of ``tpudsp/kernels/pll.py``: the
+carrier scans ``pll_carrier_scan`` and ``pll_carrier_scan_chunked``).
 
 Gains follow the liquid nco convention: freq gain alpha = bw, phase gain
-beta = sqrt(bw). The loop itself runs inside the fused AM front
-(``kernels/am_backend.front_sample_step`` and its CUDA kernel).
+beta = sqrt(bw). Per sample (pll.py's update order):
+
+    v      = x e^{-j theta}     (xr cos + xi sin, xi cos - xr sin)
+    err    = atan2(Im v, Re v)  (libm atan2, as the JAX scan)
+    output theta                (the value BEFORE the update)
+    freq  += alpha err
+    theta  = wrap(theta + beta err + freq)
+
+This module holds the plain PyTorch versions (a Python loop over the
+samples); on the card the scans are the CUDA kernel ``csrc/pll_scan.cu``
+(``cuda/pll_scan``). The fused AM front runs the same loop with the
+polynomial atan2 inside ``kernels/am_backend.front_sample_step``.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
+
+from . import lanes
+from .warmup import chunk_for, warmup_for
 
 
 class PllState(NamedTuple):
@@ -21,3 +37,81 @@ def pll_init(device=None) -> PllState:
     zero = dict(dtype=torch.float32, device=device)
     return PllState(theta=torch.tensor(0.0, **zero),
                     freq=torch.tensor(0.0, **zero))
+
+
+def wrap(t):
+    """Floor-mod into [-pi, pi) with the divisor's sign, as jnp.mod
+    (torch.fmod keeps the dividend's)."""
+    return torch.remainder(t + math.pi, 2.0 * math.pi) - math.pi
+
+
+def gains(bw: float):
+    """(alpha, beta) = (bw, sqrt(bw)) rounded to f32, as Python floats."""
+    return float(np.float32(bw)), float(np.float32(np.sqrt(bw)))
+
+
+def pll_step(alpha: float, beta: float, st: PllState, xr, xi):
+    """One carrier-PLL step on f32 re/im samples (scalars or lane vectors).
+    Returns (state, (theta before the update,))."""
+    theta, freq = st
+    c = torch.cos(theta)
+    s = torch.sin(theta)
+    vr = xr * c + xi * s
+    vi = xi * c - xr * s
+    err = torch.atan2(vi, vr)
+    freq = freq + alpha * err
+    return PllState(wrap(theta + beta * err + freq), freq), (theta,)
+
+
+def _step(bw: float):
+    alpha, beta = gains(bw)
+    return lambda st, xr, xi: pll_step(alpha, beta, st, xr, xi)
+
+
+def pll_carrier_scan(state: PllState, x, bw: float):
+    """Exact carrier scan over the last axis of x (..., N) complex64, state
+    leaves shaped like x[..., 0]. Returns (state, thetas) shaped like x."""
+    state, (thetas,) = lanes.exact_scan(_step(bw), state, x)
+    return state, thetas
+
+
+def chunked_lanes(state: PllState, x, bw: float, chunk: int, warmup: int):
+    """Chunk-parallel carrier scan over x (C, L) complex64 from per-stream
+    state leaves (C,), for L > chunk + warmup; a padded last chunk re-runs
+    each stream's tail from the last chunk's warmup-derived entry state
+    (pll.py's _chunked_scan). Returns (state (C,), thetas (C, L))."""
+    C, L = x.shape
+    entry, final, (thetas,), nchunks, pad = lanes.chunked_scan(
+        _step(bw), state, x, chunk, warmup)
+    new_state = lanes.per_stream(final, C, -1)
+    if pad:
+        new_state, _ = pll_carrier_scan(lanes.per_stream(entry, C, -1),
+                                        x[:, (nchunks - 1) * chunk:], bw)
+    return new_state, lanes.unplanes(thetas, C, L)
+
+
+def chunk_plan(bw: float, chunk: int | None, warmup: int | None):
+    """pll_carrier_scan_chunked's defaults: warmup from kernels/warmup.py
+    (>= 12/sqrt(bw), at least 2048), chunk_for(warmup, base=2048)."""
+    if warmup is None:
+        warmup = warmup_for(pll_bw=bw, minimum=2048)
+    if chunk is None:
+        chunk = chunk_for(warmup, base=2048)
+    return chunk, warmup
+
+
+def pll_carrier_scan_chunked(state: PllState, x, bw: float,
+                             chunk: int | None = None,
+                             warmup: int | None = None):
+    """Chunk-parallel carrier scan over x (N,) with scalar state, or a
+    batch x (C, N) with state leaves (C,) (an approximation, exact after
+    lock to ~exp(-sqrt(bw) warmup)). A block with N <= chunk + warmup runs
+    exactly. Returns (state, thetas) shaped like the input."""
+    chunk, warmup = chunk_plan(bw, chunk, warmup)
+    if x.shape[-1] <= chunk + warmup:
+        return pll_carrier_scan(state, x, bw)
+    if x.ndim == 2:
+        return chunked_lanes(state, x, bw, chunk, warmup)
+    st, thetas = chunked_lanes(lanes.one_stream(state), x[None], bw, chunk,
+                               warmup)
+    return lanes.first_stream(st), thetas[0]

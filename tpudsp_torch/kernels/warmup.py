@@ -11,8 +11,9 @@ matches the true state to a relative error ~ exp(-warmup / memory), where
     tracker, de-emphasis) run as exact scans outside the chunked loop.
 
 The TPU package also caps the warmup its VMEM kernels stage
-(``PALLAS_WARMUP_MAX``); the CUDA kernel reads its warmup windows from
-device memory, so the port has no such cap.
+(``PALLAS_WARMUP_MAX``). The CUDA kernels read their warmup windows from
+device memory and need no cap; the port keeps the constant only so that
+the AGC op picks the same route, and so the same chunk, as the JAX op.
 """
 
 from __future__ import annotations
@@ -23,6 +24,9 @@ import numpy as np
 FACTOR = 12.0
 AGC_MEMORY = 3.0   # samples x (1/alpha)
 PLL_MEMORY = 3.0   # samples x (1/sqrt(bw))
+
+# the JAX AGC op's bound for its Pallas route (tpudsp/kernels/warmup.py)
+PALLAS_WARMUP_MAX = 6144
 
 
 def _round_up(n: int, q: int) -> int:
