@@ -22,9 +22,15 @@ result line) if it fails:
                 ragged 3-stream batch with squelch on, and the exact
                 single-lane launch at the README AMRadio's callback shape;
               pll_scan: the chunked scan over 96,000 samples and the exact
-                single-lane launch at the AMRadio's callback shape.
-              Outputs must reach 90 dB SNR, modes must be equal, final
-              states close;
+                single-lane launch at the AMRadio's callback shape;
+              halo_async: the async-halo front end on a 1x1 mesh at the AM
+                shape (a 4M-sample c64 shard, the AM design's 3 phases of
+                24 x 125 offset-folded real taps) and at the bank shape (16
+                channels of 128 taps decimating by 10, 4M samples of c64,
+                int16 and uint8), each with a random carried tail.
+              Scan outputs must reach 90 dB SNR, modes must be equal, final
+              states close; halo_async must reach 110 dB (it sums in
+              another order than cuBLAS);
 3. chain   -- AMReceiver on the card over two 2M-sample blocks against the
               float64 sample-serial oracle chain (numpy, on the host):
               >= 100 dB over the settled second half;
@@ -33,16 +39,24 @@ result line) if it fails:
               with carried state, for c64, i16 and u8 input; i16/u8 >= 90 dB
               against c64, all finite, am_front_scan launched (launch counts
               are zeroed just before and read just after this path);
-5. compat  -- the README's AMRadio, verbatim, on tpudsp_torch.compat on the
+5. sharded -- ShardedAMReceiver on a 1x1 mesh at full width: three
+              4M-sample c64 blocks with halo='async' and with
+              halo='ppermute'; async against ppermute, each against
+              AMReceiver on the same blocks and async against the float64
+              oracle chain (past the first block), all >= 100 dB;
+              halo_async launched during the async run;
+6. compat  -- the README's AMRadio, verbatim, on tpudsp_torch.compat on the
               card: 2 Msps int16 bytes through bytes_to_iq, 2^21 samples in
               2^18-sample callbacks, >= 100 dB over the settled half against
               a float64 oracle chain built from the compat ops' own designs;
               agc_scan and pll_scan launched during this path. Then
               AGC(throughput_mode=True, use_pallas=True) over three
               4M-sample blocks with carried state: finite, agc_scan launched;
-6. timing  -- per-format block time of the AM receiver and per-callback time
-              of the AMRadio (median of 5 with spread), and each kernel's
-              time against its plain version's at its main shape.
+7. timing  -- per-format block time of the AM receiver, per-mode block time
+              of the sharded receiver, per-callback time of the AMRadio
+              (median of 5 with spread), and each kernel's time against
+              its plain version's at its main shape (and halo_async's
+              against one torch.nn.functional.conv1d call, TF32 off).
 
 Prints the card's name and power limit first, a "kernels" JSON line before
 the last (per kernel: launches on its path, max abs error against its plain
@@ -283,6 +297,66 @@ def _record(name, max_err, plain_ms, **kw):
         max_abs_err=max_err, plain_ms=plain_ms, **kw)
 
 
+def halo_am_case(seed: int):
+    """halo_async's inputs at the AM shape: a 4M-sample c64 shard, a
+    random carried tail and the AM design's offset-folded taps, real (Tim
+    None, the kernel's real-tap instance), as ShardedAMReceiver(halo=
+    'async') passes them."""
+    import torch
+    from tpudsp_torch.chains.am import AMConfig, build as am_build
+    params, st, _ = am_build(AMConfig(), BLOCK_4M, device=DEV)
+    rng = np.random.default_rng(seed)
+    kf = st.rs_tail.shape[0]
+    tail = (rng.standard_normal(kf) + 1j * rng.standard_normal(kf)) * 0.3
+    x = am_signal(BLOCK_4M, 2e6, 200.0, noise=0.01, seed=seed)
+    return (torch.from_numpy(x).to(DEV), torch.from_numpy(tail.astype(np.complex64)).to(DEV),
+            params.taps_fused, None, 125, N_OUT_4M // 3)
+
+
+def halo_bank_case(fmt: str, seed: int):
+    """halo_async's inputs at the bank shape: 16 channels of 128 random
+    complex taps decimating by 10 (the wire scale folded in), 4M samples
+    and a 127-sample carried tail of c64 or raw (n, 2) int16 / uint8."""
+    import torch
+    from tpudsp_torch.kernels import decimate as kdec
+    C, K1, D1 = 16, 128, 10
+    rng = np.random.default_rng(seed)
+    scale = {"c64": 1.0, "i16": 1 / 32767, "u8": 1 / 127.5}[fmt] / np.sqrt(K1)
+    taps = (rng.standard_normal((C, K1)) + 1j * rng.standard_normal((C, K1))) * scale
+    Tre, Tim = (torch.from_numpy(kdec.plan_phase_taps(t.astype(np.float32), D1)).to(DEV)
+                for t in (taps.real, taps.imag))
+    n = BLOCK_4M + K1 - 1
+    z = (rng.standard_normal(n) + 1j * rng.standard_normal(n)) * 0.2
+    if fmt == "i16":
+        w = np.clip(np.round(np.stack([z.real, z.imag], 1) * 32767), -32767, 32767).astype(np.int16)
+    elif fmt == "u8":
+        w = np.clip(np.round(np.stack([z.real, z.imag], 1) * 127.5 + 127.5), 0, 255).astype(np.uint8)
+    else:
+        w = z.astype(np.complex64)
+    w = torch.from_numpy(w).to(DEV)
+    return w[K1 - 1:].contiguous(), w[:K1 - 1].contiguous(), Tre, Tim, D1, BLOCK_4M // D1
+
+
+def _compare_halo(name, case, snr_bar=110.0):
+    """halo_async vs its plain version on one case: SNR over all outputs.
+    Returns (max abs error, the plain version's ms after a warm-up call,
+    which leaves cuBLAS's set-up out)."""
+    import torch
+    from tpudsp_torch.cuda import halo_async
+    from tpudsp_torch.parallel import make_mesh
+    mesh = make_mesh(1, 1, DEV)
+    y = halo_async.bank_front_async(*case, mesh)
+    ref = halo_async.bank_front_async_ref(*case, mesh)
+    _, plain_ms = timed(lambda: halo_async.bank_front_async_ref(*case, mesh))
+    torch.cuda.synchronize()
+    y, ref = y.cpu().numpy(), ref.cpu().numpy()
+    s, max_err = snr_db(ref, y), float(np.max(np.abs(y - ref)))
+    log(f"kernel[{name}]: snr {s:.2f} dB (bar {snr_bar:.0f}), max_abs_err {max_err:.3e}")
+    if not (y.shape == ref.shape and s >= snr_bar):
+        raise AssertionError(f"kernel[{name}] disagrees with its plain version")
+    return max_err, plain_ms
+
+
 def phase_kernel():
     import torch
     from tpudsp_torch.cuda import agc_scan, pll_scan
@@ -358,6 +432,13 @@ def phase_kernel():
             plain_ms)
     results["inputs"] = dict(x96k=x, x4m=x4, xc=xc)
 
+    # halo_async at the AM shape (its main path) and the bank shape
+    _record("halo_async", *_compare_halo("halo_async AM shape C=3 Kc=24 D1=125 4M c64 real taps",
+                                         halo_am_case(7)))
+    for k, fmt in enumerate(("c64", "i16", "u8")):
+        _compare_halo(f"halo_async bank shape C=16 Kc=13 D1=10 4M {fmt}",
+                      halo_bank_case(fmt, 8 + k))
+
 
 def phase_chain():
     import torch
@@ -415,6 +496,40 @@ def phase_width():
         f"am_front_scan launches {launches}")
     if not (finite and s16 >= 90.0 and s8 >= 90.0 and launches > 0):
         raise AssertionError("full-width phase failed")
+
+
+def phase_sharded():
+    import torch
+    from tpudsp_torch.chains.am import AMConfig, AMReceiver
+    from tpudsp_torch.cuda import halo_async
+    from tpudsp_torch.parallel import ShardedAMReceiver, make_mesh
+    cfg = AMConfig()
+    iq = am_signal(3 * BLOCK_4M, cfg.iq_rate, 200.0)
+    blocks = [torch.from_numpy(iq[k * BLOCK_4M:(k + 1) * BLOCK_4M]).to(DEV) for k in range(3)]
+    mesh = make_mesh(1, 1, DEV)
+    rxs = {h: ShardedAMReceiver(cfg, mesh, BLOCK_4M, halo=h, device=DEV)
+           for h in ("async", "ppermute")}
+    ref = AMReceiver(cfg, BLOCK_4M, device=DEV)
+    torch.cuda.synchronize()
+    halo_async._launch.launches = 0                # the async run starts
+    y_as = torch.cat([rxs["async"](b) for b in blocks])
+    torch.cuda.synchronize()
+    launches = halo_async._launch.launches         # ... and ends
+    results["kernels"].setdefault("halo_async", {})["launches"] = launches
+    y_pp = torch.cat([rxs["ppermute"](b) for b in blocks]).cpu().numpy()
+    y_ref = torch.cat([ref(b) for b in blocks]).cpu().numpy()
+    y_as = y_as.cpu().numpy()
+    y_or = oracle_am_chain(iq, cfg)
+    settle = N_OUT_4M  # the oracle past the first block (PLL lock, DC settling)
+    s = {"async vs ppermute": snr_db(y_pp, y_as), "async vs AMReceiver": snr_db(y_ref, y_as),
+         "ppermute vs AMReceiver": snr_db(y_ref, y_pp),
+         "async vs float64 oracle": snr_db(y_or[settle:], y_as[settle:])}
+    finite = all(v.shape == (3 * N_OUT_4M,) and np.all(np.isfinite(v)) for v in (y_as, y_pp))
+    log("sharded: ShardedAMReceiver on a 1x1 mesh, 3 x 4M-sample c64 blocks: "
+        + ", ".join(f"{k} {v:.2f} dB" for k, v in s.items())
+        + f" (bar 100); all finite {finite}; halo_async launches {launches}")
+    if not (finite and min(s.values()) >= 100.0 and launches > 0):
+        raise AssertionError("sharded phase failed")
 
 
 def am_radio_class(liquiddsp):
@@ -520,6 +635,89 @@ def _timed_call(fn, times: list):
     return call
 
 
+def _block_times(rx, blocks):
+    """Host seconds of rx on blocks[1:] after a warm-up call on blocks[0],
+    each ending synchronised: (median, spread / median)."""
+    import torch
+    rx(blocks[0])
+    torch.cuda.synchronize()
+    times = []
+    for b in blocks[1:]:
+        t0 = time.perf_counter()
+        rx(b)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    med = statistics.median(times)
+    return med, (max(times) - min(times)) / med
+
+
+def _conv1d_call(x, tail, Tre, Tim, D1, nj):
+    """The library call for halo_async's function: one strided
+    torch.nn.functional.conv1d over the (re, im) planes of [tail | x |
+    pad] (centred as the kernel loads them): with complex taps one
+    2-channel input and 2C real filters [Tr, -Ti] and [Ti, Tr]; with real
+    taps (Tim None) a batch of the two planes and the C filters Tr. Timed
+    beside the kernel; the port never calls it. Returns (the call, its
+    output as (C, nj) complex)."""
+    import torch
+    from tpudsp_torch.cuda.halo_async import _FORMATS
+    _, off, pad_value = _FORMATS[x.dtype]
+    C, Kc, _ = Tre.shape
+    win = Kc * D1
+    X = torch.cat([tail, x])
+    pad = (nj - 1) * D1 + win - X.shape[0]
+    if pad > 0:
+        X = torch.cat([X, torch.full((pad,) + X.shape[1:], pad_value, dtype=X.dtype,
+                                     device=X.device)])
+    planes = (torch.view_as_real(X) if X.is_complex() else X.float() - off).T
+    Tr = Tre.reshape(C, win)
+    if Tim is None:
+        planes, W = planes[:, None].contiguous(), Tr[:, None].contiguous()
+        return (lambda: torch.nn.functional.conv1d(planes, W, stride=D1),
+                lambda y: torch.complex(y[0], y[1]))
+    Ti = Tim.reshape(C, win)
+    W = torch.stack([torch.stack([Tr, -Ti], 1), torch.stack([Ti, Tr], 1)], 1)
+    W = W.reshape(2 * C, 2, win)
+    planes = planes[None].contiguous()
+    return (lambda: torch.nn.functional.conv1d(planes, W, stride=D1),
+            lambda y: torch.complex(y[0, 0::2], y[0, 1::2]))
+
+
+def time_halo_async():
+    """halo_async's kernel time at the AM shape, its bound and the conv1d
+    library call's time (TF32 off); the bank shape's kernel and conv1d
+    times are logged."""
+    import torch
+    from tpudsp_torch.cuda import halo_async
+    from tpudsp_torch.parallel import make_mesh
+    mesh = make_mesh(1, 1, DEV)
+    torch.backends.cudnn.allow_tf32 = False
+    cases = [("AM shape c64", halo_am_case(7))] + [
+        (f"bank shape {fmt}", halo_bank_case(fmt, 8 + k)) for k, fmt in enumerate(("c64", "i16", "u8"))]
+    k = results["kernels"]["halo_async"]
+    for label, case in cases:
+        x, tail, Tre, Tim, D1, nj = case
+        kernel_ms = _cuda_ms(lambda: halo_async.bank_front_async(*case, mesh), 20)
+        conv, to_complex = _conv1d_call(*case)
+        y_conv = to_complex(conv())
+        Y = halo_async.bank_front_async(*case, mesh)
+        C = Tre.shape[0]
+        s = snr_db(Y.cpu().numpy(), y_conv.cpu().numpy())
+        library_ms = _cuda_ms(conv, 20)
+        win = Tre.shape[1] * D1
+        # real taps: 2 multiplies and 2 adds per tap, channel and output
+        # (4 B a tap); complex: 8 (8 B a tap)
+        per_tap = 4 if Tim is None else 8
+        nbytes = (x.numel() + tail.numel()) * x.element_size() + win * C * per_tap // 2 + nj * C * 8
+        ops = float(per_tap) * C * win * nj
+        log(f"timing: halo_async {label}: kernel {kernel_ms:.4f} ms, conv1d {library_ms:.4f} ms "
+            f"(agrees with the kernel to {s:.1f} dB), bound max({nbytes / HBM_BPS * 1e3:.4f}, "
+            f"{ops / F32_FLOPS * 1e3:.4f}) ms")
+        if label.startswith("AM"):
+            k.update(ms=kernel_ms, library_ms=library_ms)
+            bound("halo_async", nbytes, ops)
+
+
 def phase_timing():
     import torch
     import tpudsp_torch.compat as liquiddsp
@@ -528,24 +726,22 @@ def phase_timing():
     from tpudsp_torch.cuda import am_backend_scan as scan
     from tpudsp_torch.kernels import agc as kagc
     from tpudsp_torch.kernels import pll as kpll
+    from tpudsp_torch.cuda import halo_async
+    from tpudsp_torch.parallel import ShardedAMReceiver, make_mesh
     data = wire_blocks(6, BLOCK_4M, seed=3)     # a distinct block every call
-    rates = {}
     for fmt in ("c64", "i16", "u8"):
         rx = AMReceiver(AMConfig(), BLOCK_4M, fmt, device=DEV)
-        blocks = [torch.from_numpy(b).to(DEV) for b in data[fmt]]
-        rx(blocks[0])
-        torch.cuda.synchronize()
-        times = []
-        for b in blocks[1:]:
-            t0 = time.perf_counter()
-            rx(b)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-        med = statistics.median(times)
-        spread = (max(times) - min(times)) / med
-        rates[fmt] = BLOCK_4M / med
+        med, spread = _block_times(rx, [torch.from_numpy(b).to(DEV) for b in data[fmt]])
         log(f"timing: AMReceiver {fmt} 4M-sample block: median {med * 1e3:.3f} ms "
             f"of 5 (spread {spread * 100:.1f}%), {BLOCK_4M / med / 1e6:.1f} Msamp/s")
+    blocks = [torch.from_numpy(b).to(DEV) for b in data["c64"]]
+    for halo in ("ppermute", "async"):
+        rx = ShardedAMReceiver(AMConfig(), make_mesh(1, 1, DEV), BLOCK_4M, halo=halo,
+                               device=DEV)
+        med, spread = _block_times(rx, blocks)
+        log(f"timing: ShardedAMReceiver 1x1 halo={halo} c64 4M-sample block: median "
+            f"{med * 1e3:.3f} ms of 5 (spread {spread * 100:.1f}%), "
+            f"{BLOCK_4M / med / 1e6:.1f} Msamp/s")
     # the AMRadio per callback (bytes in, pcm out), a distinct callback
     # each; each stage's call is timed too (each returns numpy, so each
     # ends synchronised with the card)
@@ -569,7 +765,7 @@ def phase_timing():
                     for s, v in stages.items()))
 
     counts = (scan._launch.launches, agc_scan._launch.launches,
-              pll_scan._launch.launches)
+              pll_scan._launch.launches, halo_async._launch.launches)
     k = results["kernels"]
     x, x4, xc = (results["inputs"][n] for n in ("x96k", "x4m", "xc"))
     p, st = front_params(), front_state(1)
@@ -587,16 +783,20 @@ def phase_timing():
     k["pll_scan"]["ms"] = _cuda_ms(lambda: pll_scan.pll_carrier_scan(pst, xc, 0.001), 10)
     bound("pll_scan", N_CALLBACK_OUT * (8 + 4), N_CALLBACK_OUT * OPS_PLL)
     pll96 = _cuda_ms(lambda: pll_scan.pll_carrier_scan(pst, x, 0.001), 5)
+    time_halo_async()
     # timing launches are not a path's
-    scan._launch.launches, agc_scan._launch.launches, pll_scan._launch.launches = counts
+    (scan._launch.launches, agc_scan._launch.launches, pll_scan._launch.launches,
+     halo_async._launch.launches) = counts
     for name, v in k.items():
         log(f"timing: {name}: kernel {v['ms']:.4f} ms, plain PyTorch "
-            f"{v['plain_ms']:.1f} ms, bound {v.get('bound_ms', float('nan')):.6f} ms")
+            f"{v['plain_ms']:.1f} ms, bound {v.get('bound_ms', float('nan')):.6f} ms, "
+            f"library {v.get('library_ms')}")
     log(f"timing: pll_scan exact L={N_OUT_4M}: kernel {pll96:.4f} ms")
 
 
 PHASES = [("build", phase_build), ("kernel", phase_kernel), ("chain", phase_chain),
-          ("width", phase_width), ("compat", phase_compat), ("timing", phase_timing)]
+          ("width", phase_width), ("sharded", phase_sharded), ("compat", phase_compat),
+          ("timing", phase_timing)]
 
 KERNELS = [
     ("am_front_scan", "tpudsp_torch/csrc/am_front_scan.cu",
@@ -604,6 +804,7 @@ KERNELS = [
     ("agc_scan", "tpudsp_torch/csrc/agc_scan.cu", "tpudsp/pallas/agc_scan.py:37"),
     # a lax.scan in the JAX package, not a Pallas kernel
     ("pll_scan", "tpudsp_torch/csrc/pll_scan.cu", "tpudsp/kernels/pll.py:45"),
+    ("halo_async", "tpudsp_torch/csrc/halo_async.cu", "tpudsp/pallas/halo_async.py:43"),
 ]
 
 
@@ -643,7 +844,7 @@ def main() -> int:
         "launches": k[name]["launches"], "max_abs_err": k[name]["max_abs_err"],
         "ms": k[name]["ms"], "plain_ms": k[name]["plain_ms"],
         "bound_ms": k[name]["bound_ms"], "bound_by": k[name]["bound_by"],
-        "library_ms": None} for name, source, replaces in KERNELS]}))
+        "library_ms": k[name].get("library_ms")} for name, source, replaces in KERNELS]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -18,8 +18,10 @@ squelch + carrier-PLL feedback core as the CUDA kernel
 ``csrc/am_front_scan.cu``; and the reference class surface the README's
 AMRadio uses (``compat``: AGC, the IIR / FIR filters, the resamplers,
 AmpModem, bytes_to_iq), with the AGC scan (``csrc/agc_scan.cu``) and the
-carrier-PLL scan (``csrc/pll_scan.cu``) as CUDA kernels. Everything runs
-on the card ("cuda") unless the caller asks for the CPU.
+carrier-PLL scan (``csrc/pll_scan.cu``) as CUDA kernels; and the same AM
+receiver time-sharded on torch.distributed (``parallel.ShardedAMReceiver``),
+with the async-halo front end as the CUDA kernel ``csrc/halo_async.cu``.
+Everything runs on the card ("cuda") unless the caller asks for the CPU.
 """
 
 from .chains.am import AMConfig, AMReceiver  # noqa: F401

@@ -3,7 +3,9 @@
 ``from_jax`` reads every leaf of the JAX package's ``AMParams`` /
 ``AMState`` with ``np.asarray`` and makes the port's tensors from it, so a
 stream can move from a ``tpudsp`` receiver to a ``tpudsp_torch`` one
-mid-flight. ``op_state_from_jax`` does the same for an op of the
+mid-flight; ``sharded_am_from_jax`` does it for a JAX
+``ShardedAMReceiver``'s taps and ``SAMState``. ``op_state_from_jax`` does
+the same for an op of the
 reference class surface: it turns a ``tpudsp.compat`` op's ``.state`` (a
 host numpy pytree) into the state of its ``tpudsp_torch.compat`` twin,
 for ``with_state``. Neither imports jax: the JAX objects are only read by
@@ -14,6 +16,7 @@ from __future__ import annotations
 
 from .chains.am import AMParams, AMState
 from .kernels.agc import AgcParams, AgcState
+from .kernels.am_backend import FrontState
 from .kernels.ampmodem import AmpDemodState
 from .kernels.hilbert import C2RState
 from .kernels.pll import PllState
@@ -21,7 +24,7 @@ from .ops.base import to_tensor
 
 # the port's state types, by the name of their JAX twins
 _STATE_TYPES = {T.__name__: T for T in (AgcState, AmpDemodState, C2RState,
-                                        PllState)}
+                                        FrontState, PllState)}
 
 
 def _t(v, device):
@@ -59,3 +62,18 @@ def from_jax(params, state, device="cuda"):
         deemph=t(state.deemph),
     )
     return new_params, new_state
+
+
+def sharded_am_from_jax(taps, state, device="cuda"):
+    """A JAX ``ShardedAMReceiver``'s taps (its ``_taps``: an array, or a
+    tuple of arrays) and ``SAMState`` -> the port receiver's ``taps`` and
+    ``state`` on ``device``, leaf for leaf with dtypes kept."""
+    from .parallel.am import SAMState   # the sharded runtime, only here
+    if isinstance(taps, tuple):
+        taps = tuple(_t(v, device) for v in taps)
+    else:
+        taps = _t(taps, device)
+    return taps, SAMState(rs_tail=_t(state.rs_tail, device),
+                          front=op_state_from_jax(state.front, device),
+                          dc=_t(state.dc, device),
+                          deemph=_t(state.deemph, device))

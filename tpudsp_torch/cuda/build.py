@@ -40,6 +40,9 @@ SIGNATURES = {
     "pll_scan": {
         "pll_scan": [_P] * 8 + [_I] * 4 + [_P],
     },
+    "halo_async": {
+        "halo_async": [_P] * 4 + [_I] * 10 + [_P],
+    },
 }
 
 _lock = threading.Lock()

@@ -1,5 +1,6 @@
 """Fused filter + decimate front end as one strided matmul (port of the
-shared-grid path of ``tpudsp/kernels/decimate.py``).
+shared-grid path of ``tpudsp/kernels/decimate.py``), and the bank's
+wide strided complex FIR (``strided_cfir_matmul_wide*``, at the end).
 
 The fused AM front end evaluates the bandpass folded into the polyphase
 resampler only at the output points: y_r[j] = sum_i X[off_r + j*Q + i]
@@ -124,3 +125,63 @@ def fused_frontend_apply_shared_u8(taps, dc, tail, iq2, Q: int, nj: int):
     (windows only overlap the pad where the folded taps are zero); the
     tail starts at 127, within half an LSB of zero signal."""
     return _apply_shared(taps, tail, iq2, 127, Q, nj, dc=dc)
+
+
+# --------------------------------------------------------------------------
+# The strided complex decimating FIR of the receiver bank as ONE wide real
+# matmul (port of ``strided_cfir_matmul_wide{,_i16,_u8}``): the Kc shifted
+# frame slices form explicit windows (one strided view of the input), and
+# the complex product is packed into one real product
+#
+#     W  = [wr | wi]                      (nj, 2*K1)   K1 = Kc*Q
+#     TT = [[Tr, Ti], [-Ti, Tr]]          (2*K1, 2*C)
+#     [yr | yi] = W @ TT                  (nj, 2*C)
+#
+# y[c, j] = sum_k X[j*Q + k] T_c[k]. These are the plain versions the
+# async-halo kernel (csrc/halo_async.cu) is held against, in full f32.
+
+def _wide(xr, xi, Tre, Tim, Q: int, nj: int):
+    """(L,) f32 planes with L >= (nj + Kc - 1) * Q -> Y (nj, 2C) f32."""
+    C, Kc, Q_ = Tre.shape
+    K1 = Kc * Q_
+    L = (nj + Kc - 1) * Q_
+    W = torch.cat([xr[:L].unfold(0, K1, Q_), xi[:L].unfold(0, K1, Q_)], 1)
+    Tr = Tre.reshape(C, K1).T
+    Ti = Tim.reshape(C, K1).T
+    TT = torch.cat([torch.cat([Tr, Ti], 1), torch.cat([-Ti, Tr], 1)], 0)
+    return f32_matmul(W, TT)
+
+
+def _complex_cols(yr, yi):
+    """(nj, C) re and im columns -> (C, nj) complex64."""
+    return torch.complex(yr.T, yi.T).contiguous()
+
+
+def strided_cfir_matmul_wide(X, Tre, Tim, Q: int, nj: int):
+    """X: (L,) complex64; Tre/Tim: (C, Kc, Q) blocked correlation-order
+    taps. Returns (C, nj) complex64."""
+    C = Tre.shape[0]
+    Xr = torch.view_as_real(X.to(torch.complex64))
+    Y = _wide(Xr[:, 0], Xr[:, 1], Tre, Tim, Q, nj)
+    return _complex_cols(Y[:, :C], Y[:, C:])
+
+
+def strided_cfir_matmul_wide_i16(X2, Tre, Tim, Q: int, nj: int):
+    """Raw interleaved int16 input: X2 is (L, 2) int16 [re, im] and
+    Tre/Tim carry the 1/32767 scale pre-folded. Returns (C, nj)
+    complex64."""
+    C = Tre.shape[0]
+    Y = _wide(X2[:, 0].float(), X2[:, 1].float(), Tre, Tim, Q, nj)
+    return _complex_cols(Y[:, :C], Y[:, C:])
+
+
+def strided_cfir_matmul_wide_u8(X2, Tre, Tim, Q: int, nj: int):
+    """RTL-SDR uint8 input: X2 is (L, 2) uint8 [re, im] with sample value
+    (b - 127.5)/127.5. Tre/Tim carry the 1/127.5 scale; the -127.5 offset
+    becomes a per-channel complex DC term from the tap sums, subtracted
+    from the packed outputs. Returns (C, nj) complex64."""
+    C = Tre.shape[0]
+    Y = _wide(X2[:, 0].float(), X2[:, 1].float(), Tre, Tim, Q, nj)
+    sre = 127.5 * Tre.reshape(C, -1).sum(1)
+    sim = 127.5 * Tim.reshape(C, -1).sum(1)
+    return _complex_cols(Y[:, :C] - (sre - sim), Y[:, C:] - (sre + sim))
