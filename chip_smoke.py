@@ -8,19 +8,31 @@ CUDA toolkit. Phases, each of which fails the run (exit code 1, no final
 result line) if it fails:
 
 1. build   -- compile every kernel of the port from csrc/ with nvcc, one
-              process per source, all at once, and print the seconds it
-              took;
+              process per source, all at once, print the seconds it took
+              and ptxas's registers, shared memory and spills of the two
+              staged scan kernels;
 2. kernel  -- each CUDA kernel against its plain PyTorch version on the
-              card, at the shapes its paths give it:
+              card, at the shapes its paths give it and at the shapes
+              where the staged scans' bookkeeping could go wrong:
               am_front_scan: the AM receiver's shape (one stream, 96000
-                samples, chunk = warmup = 3840), a ragged 3-stream batch
-                with squelch on, and a short block (the exact single-lane
-                launch);
+                samples, chunk = warmup = 3840: 25 lanes), a ragged
+                3-stream batch with squelch on, the same batch at chunk
+                1000 and warmup 2500 (a chunk the stage depth does not
+                divide, stages crossing chunk boundaries in the warmup,
+                150 lanes) and at chunk 50 (shorter than a stage), a short
+                block and the exact single-lane launch at the AMRadio
+                callback's length, the sharded receiver's 3840-sample
+                entry scan from a carried state, and PLL states and a loop
+                gain that take the PLL warp's unbounded instance (theta
+                outside [-pi, pi], the wrap's fmodf path);
               agc_scan: one 4,000,000-sample block on the Pallas route
                 (chunk 1024, warmup 3840: 3907 lanes, ragged last chunk),
                 the same block on the XLA route (chunk = warmup = 3840), a
-                ragged 3-stream batch with squelch on, and the exact
-                single-lane launch at the README AMRadio's callback shape;
+                ragged 3-stream batch with squelch on on the Pallas route
+                (also at chunk 1000, warmup 3750, and at chunk 50) and the
+                XLA route, and
+                the exact single-lane launch at the README AMRadio's
+                callback shape;
               pll_scan: the chunked scan over 96,000 samples and the exact
                 single-lane launch at the AMRadio's callback shape;
               halo_async: the async-halo front end on a 1x1 mesh at the AM
@@ -28,9 +40,10 @@ result line) if it fails:
                 24 x 125 offset-folded real taps) and at the bank shape (16
                 channels of 128 taps decimating by 10, 4M samples of c64,
                 int16 and uint8), each with a random carried tail.
-              Scan outputs must reach 90 dB SNR, modes must be equal, final
-              states close; halo_async must reach 110 dB (it sums in
-              another order than cuBLAS);
+              am_front_scan and agc_scan must equal their plain versions
+              bit for bit (outputs, modes and final states); pll_scan must
+              reach 90 dB SNR with close final states; halo_async must
+              reach 110 dB (it sums in another order than cuBLAS);
 3. chain   -- AMReceiver on the card over two 2M-sample blocks against the
               float64 sample-serial oracle chain (numpy, on the host):
               >= 100 dB over the settled second half;
@@ -55,13 +68,16 @@ result line) if it fails:
 7. timing  -- per-format block time of the AM receiver, per-mode block time
               of the sharded receiver, per-callback time of the AMRadio
               (median of 5 with spread), and each kernel's time against
-              its plain version's at its main shape (and halo_async's
+              its plain version's at its main shape, with the scans' ns
+              per dependent step, the two staged kernels' launches alone
+              and the sharded receiver's entry scan (and halo_async's
               against one torch.nn.functional.conv1d call, TF32 off).
 
 Prints the card's name and power limit first, a "kernels" JSON line before
 the last (per kernel: launches on its path, max abs error against its plain
-version, ms, plain ms, the bound computed from the shape, and the library
-call's time, null where no single PyTorch call computes the function), and
+version, ms, plain ms, the bound computed from the shape, the library
+call's time, null where no single PyTorch call computes the function, and
+for the scans the steps per lane and ns per step at the main shape), and
 as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero without that line when no CUDA device is present or when it
@@ -225,35 +241,45 @@ def _cuda_ms(fn, reps: int) -> float:
 # --------------------------------------------------------------------------
 def phase_build():
     from tpudsp_torch.cuda import build
+    # scan_step.cuh's sin_cos_reduced copies libdevice's sincosf: a toolkit
+    # whose sincosf differs shows in the bit-equality checks of phase kernel
+    ver = subprocess.run([build.nvcc(), "--version"], capture_output=True, text=True)
+    log(f"build: nvcc {' '.join(ver.stdout.split()[-6:]) or ver.stderr.strip()}")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(build.SIGNATURES)) as ex:
         libs = list(ex.map(build.compile_source, build.SIGNATURES))
     for name in build.SIGNATURES:
         build.load(name)
     log(f"build: {len(libs)} kernel source(s) in {time.perf_counter() - t0:.2f} s")
+    # registers, shared memory and spills of the staged scan kernels
+    for name in STAGED:
+        report = build.ptxas_report_path(name)
+        lines = report.read_text().splitlines() if report.exists() else ["no report"]
+        for line in lines:
+            if line.strip():
+                log(f"build: ptxas {name}: {line.strip()}")
 
 
-def _close_states(name, kst, rst, theta=False):
-    """Final states of kernel vs plain: FSM leaves equal, g relative error
-    < 1e-4, theta (wrapped) < 1e-3 rad on streams whose output is live."""
-    import torch
-    ok = True
-    if hasattr(kst, "sq_mode"):
-        ok &= torch.equal(kst.sq_mode.cpu(), rst.sq_mode.cpu())
-        ok &= torch.equal(kst.sq_timer.cpu(), rst.sq_timer.cpu())
-        ok &= float(torch.max(torch.abs(kst.g / rst.g - 1))) < 1e-4
-    if theta:
-        d = np.angle(np.exp(1j * (kst.theta.double().cpu().numpy()
-                                  - rst.theta.double().cpu().numpy())))
-        ok &= float(np.max(np.abs(d), initial=0.0)) < 1e-3
-    if not ok:
+def _close_theta(name, kst, rst):
+    """Final PLL states of kernel vs plain: theta (wrapped) < 1e-3 rad."""
+    d = np.angle(np.exp(1j * (kst.theta.double().cpu().numpy()
+                              - rst.theta.double().cpu().numpy())))
+    if not float(np.max(np.abs(d), initial=0.0)) < 1e-3:
         raise AssertionError(f"kernel[{name}]: final states disagree")
 
 
-def _compare(name, kernel_out, ref_out, snr_bar=90.0):
-    """A scan kernel vs its plain version: output SNR per stream (vr of
-    am_front_scan, y of agc_scan), equal modes, close final states.
-    Returns the max abs error of the output."""
+def _bits_equal(a, b) -> bool:
+    """Every leaf of two state tuples equal bit for bit."""
+    import torch
+    return all(torch.equal(u.cpu().view(torch.int32), v.cpu().view(torch.int32))
+               for u, v in zip(a, b))
+
+
+def _compare(name, kernel_out, ref_out):
+    """A staged scan kernel vs its plain version: output (vr of
+    am_front_scan, y of agc_scan), modes and final states equal bit for
+    bit; the output's SNR per stream is logged. Returns the max abs error
+    of the output."""
     import torch
     (kf, (ky, km)), (rf, (ry, rm)) = kernel_out, ref_out
     torch.cuda.synchronize()
@@ -261,17 +287,12 @@ def _compare(name, kernel_out, ref_out, snr_bar=90.0):
     worst = min(snr_db(ry[c], ky[c]) for c in range(ry.shape[0]))
     max_err = float(np.max(np.abs(ky - ry)))
     modes_equal = torch.equal(km.cpu(), rm.cpu())
+    leaves = lambda f: (f.agc + f.pll) if hasattr(f, "pll") else tuple(f)
+    states_equal = _bits_equal(leaves(kf), leaves(rf))
     log(f"kernel[{name}]: snr {worst:.2f} dB, max_abs_err {max_err:.3e}, "
-        f"modes equal {modes_equal}")
-    if not (worst >= snr_bar and modes_equal):
-        raise AssertionError(f"kernel[{name}] disagrees with its plain version")
-    if hasattr(kf, "pll"):       # am_front_scan: AGC and PLL states
-        live = torch.from_numpy(~np.isin(rf.agc.sq_mode.cpu().numpy(), [1, 5]))
-        sel = lambda s: type(s)(*(v[live.to(v.device)] for v in s))
-        _close_states(name, kf.agc, rf.agc)
-        _close_states(name, sel(kf.pll), sel(rf.pll), theta=True)
-    else:
-        _close_states(name, kf, rf)
+        f"modes equal {modes_equal}, final states bit-equal {states_equal}")
+    if not (max_err == 0.0 and ky.shape == ry.shape and modes_equal and states_equal):
+        raise AssertionError(f"kernel[{name}] is not bit-equal to its plain version")
     return max_err
 
 
@@ -288,7 +309,7 @@ def _compare_pll(name, kernel_out, ref_out, snr_bar=90.0):
     log(f"kernel[{name}]: e^(j theta) snr {worst:.2f} dB, max_abs_err {max_err:.3e}")
     if not worst >= snr_bar:
         raise AssertionError(f"kernel[{name}] disagrees with its plain version")
-    _close_states(name, kf, rf, theta=True)
+    _close_theta(name, kf, rf)
     return max_err
 
 
@@ -383,11 +404,58 @@ def phase_kernel():
     _compare("am_front_scan ragged C=3 squelch",
              scan.front_chunked(p, st, xs, CHUNK, WARMUP),
              scan.front_chunked_ref(p, st, xs, CHUNK, WARMUP))
+    # the staging edges: a chunk (1000) that the stage depth does not
+    # divide, a warmup of 2.5 chunks (stages cross chunk boundaries inside
+    # the warmup and the warmup / chunk boundary), 150 lanes (groups span
+    # two streams, the last group is partly idle), a ragged last chunk,
+    # squelch on
+    _compare("am_front_scan ragged C=3 squelch chunk=1000 warmup=2500",
+             scan.front_chunked(p, st, xs, 1000, 2500),
+             scan.front_chunked_ref(p, st, xs, 1000, 2500))
+    # a chunk shorter than a stage: every stage crosses chunk boundaries
+    _compare("am_front_scan ragged C=3 squelch chunk=50 warmup=1030",
+             scan.front_chunked(p, st, xs, 50, 1030),
+             scan.front_chunked_ref(p, st, xs, 50, 1030))
     # short block: L <= chunk + warmup runs the exact single-lane launch
     xb = x[:, :2000].contiguous()
     p, st = front_params(), front_state(1)
     _compare("am_front_scan short C=1 L=2000",
              scan.front_chunked(p, st, xb, CHUNK, WARMUP), kab.front_exact(p, st, xb))
+    # the exact single-lane launch at the AMRadio callback's length, and the
+    # sharded receiver's entry scan (parallel/bank.py: front_exact over the
+    # left neighbour's last 3840 samples from the carried state, here a
+    # settled one)
+    xc = torch.from_numpy(am_signal(N_CALLBACK_OUT, 48_000.0, 200.0, noise=0.003,
+                                    seed=5)[None]).to(DEV)
+    _compare(f"am_front_scan exact C=1 L={N_CALLBACK_OUT}",
+             scan.front_exact(p, st, xc), kab.front_exact(p, st, xc))
+    carried, _ = kab.front_exact(p, st, x[:, :8000])
+    halo = x[:, -WARMUP:].contiguous()
+    _compare(f"am_front_scan entry scan C=1 L={WARMUP} carried state",
+             scan.front_exact(p, carried, halo), kab.front_exact(p, carried, halo))
+    # the PLL warp's unbounded instance (libdevice sincosf, the wrap with
+    # its fmodf path), which the states above never reach: stream 1 starts
+    # at theta = 20 (fmodf on its first step, bounded stages after it),
+    # stream 2 at freq = -9 (every stage of its groups unbounded, the wrap's
+    # argument often below -2 pi); stream 0 from rest shares a group with
+    # stream 1; chunked and exact launches, and a loop gain of 0.05, whose
+    # stages are never bounded
+    p, st = front_params(), front_state(3)
+    st = kab.FrontState(st.agc, kab.PllState(
+        torch.tensor([0.0, 20.0, 0.0], device=DEV),
+        torch.tensor([0.0, 0.0, -9.0], device=DEV)))
+    xu = xs[:, :20_000].contiguous()
+    _compare("am_front_scan unbounded PLL C=3 chunk=1000 warmup=2500",
+             scan.front_chunked(p, st, xu, 1000, 2500),
+             scan.front_chunked_ref(p, st, xu, 1000, 2500))
+    _compare("am_front_scan unbounded PLL exact C=3 L=6291",
+             scan.front_exact(p, st, xu[:, :N_CALLBACK_OUT]),
+             kab.front_exact(p, st, xu[:, :N_CALLBACK_OUT]))
+    pw = front_params()._replace(pll_alpha=torch.tensor(0.05, device=DEV),
+                                 pll_beta=torch.tensor(0.2236068, device=DEV))
+    _compare("am_front_scan PLL gain 0.05 C=3 chunk=1000 warmup=2500",
+             scan.front_chunked(pw, st, xu, 1000, 2500),
+             scan.front_chunked_ref(pw, st, xu, 1000, 2500))
 
     # agc_scan at its main shape: the AGC op's Pallas route on one 4M block
     x4 = torch.from_numpy(am_signal(BLOCK_4M, 2e6, 200.0, noise=0.01,
@@ -409,9 +477,19 @@ def phase_kernel():
     _compare("agc_scan pallas route ragged C=3 squelch",
                  agc_scan.agc_chunked_pallas(apq, stq, xs, AGC_CHUNK, AGC_WARMUP),
                  agc_scan.agc_chunked_pallas_ref(apq, stq, xs, AGC_CHUNK, AGC_WARMUP))
+    # the staging edges: chunk 1000 (not a multiple of the stage depth),
+    # warmup 3750 = 3.75 chunks (a stage crosses a chunk boundary inside the
+    # warmup, and the warmup / chunk boundary), 150 lanes, ragged, squelch
+    _compare("agc_scan pallas route ragged C=3 squelch chunk=1000 warmup=3750",
+                 agc_scan.agc_chunked_pallas(apq, stq, xs, 1000, 3750),
+                 agc_scan.agc_chunked_pallas_ref(apq, stq, xs, 1000, 3750))
+    _compare("agc_scan pallas route ragged C=3 squelch chunk=50 warmup=1030",
+                 agc_scan.agc_chunked_pallas(apq, stq, xs, 50, 1030),
+                 agc_scan.agc_chunked_pallas_ref(apq, stq, xs, 50, 1030))
+    _compare("agc_scan xla route ragged C=3 squelch chunk=warmup=3840",
+                 agc_scan.agc_chunked(apq, stq, xs, CHUNK, WARMUP),
+                 kagc.agc_apply_chunked(apq, stq, xs, CHUNK, WARMUP))
     # the exact single-lane launch at the AMRadio callback's shape
-    xc = torch.from_numpy(am_signal(N_CALLBACK_OUT, 48_000.0, 200.0, noise=0.003,
-                                    seed=5)[None]).to(DEV)
     ref, plain_ms = timed(lambda: kagc.agc_apply(ap, st, xc))
     _record("agc_scan exact", _compare(
         f"agc_scan exact L={N_CALLBACK_OUT}", agc_scan.agc_exact(ap, st, xc), ref),
@@ -725,6 +803,7 @@ def phase_timing():
     from tpudsp_torch.cuda import agc_scan, pll_scan
     from tpudsp_torch.cuda import am_backend_scan as scan
     from tpudsp_torch.kernels import agc as kagc
+    from tpudsp_torch.kernels import lanes
     from tpudsp_torch.kernels import pll as kpll
     from tpudsp_torch.cuda import halo_async
     from tpudsp_torch.parallel import ShardedAMReceiver, make_mesh
@@ -771,28 +850,55 @@ def phase_timing():
     p, st = front_params(), front_state(1)
     k["am_front_scan"]["ms"] = _cuda_ms(
         lambda: scan.front_chunked(p, st, x, CHUNK, WARMUP), 20)
+    k["am_front_scan"]["steps_per_lane"] = WARMUP + CHUNK
     bound("am_front_scan", N_OUT_4M * (8 + 4 + 4), N_OUT_4M * (OPS_AGC + OPS_PLL))
+    entry = x[:, :WARMUP].contiguous()
+    entry_ms = _cuda_ms(lambda: scan.front_exact(p, st, entry), 10)
     ap = kagc.make_params(alpha=0.01, scale=0.01, device=DEV)
     ast = agc_state(1)
     k["agc_scan"]["ms"] = _cuda_ms(lambda: agc_scan.agc_chunked_pallas(
         ap, ast, x4, AGC_CHUNK, AGC_WARMUP), 10)
+    k["agc_scan"]["steps_per_lane"] = AGC_WARMUP + AGC_CHUNK
     bound("agc_scan", BLOCK_4M * (8 + 8 + 4), BLOCK_4M * OPS_AGC)
     k["agc_scan exact"]["ms"] = _cuda_ms(lambda: agc_scan.agc_exact(ap, ast, xc), 10)
+    k["agc_scan exact"]["steps_per_lane"] = N_CALLBACK_OUT
     z = lambda: torch.zeros(1, device=DEV)
     pst = kpll.PllState(z(), z())
     k["pll_scan"]["ms"] = _cuda_ms(lambda: pll_scan.pll_carrier_scan(pst, xc, 0.001), 10)
+    k["pll_scan"]["steps_per_lane"] = N_CALLBACK_OUT
     bound("pll_scan", N_CALLBACK_OUT * (8 + 4), N_CALLBACK_OUT * OPS_PLL)
     pll96 = _cuda_ms(lambda: pll_scan.pll_carrier_scan(pst, x, 0.001), 5)
+    # the two staged kernels' launches alone, on planes made beforehand: the
+    # rest of a wrapper call is its plain PyTorch copies (planes, outputs,
+    # the ragged tail's fix)
+    fre, fim, fn, _ = lanes.planes(x, CHUNK)
+    are, aim, an, _ = lanes.planes(x4, AGC_CHUNK)
+    alone = {"am_front_scan": (_cuda_ms(lambda: scan._launch(p, st, fre, fim, fn, WARMUP), 20),
+                               WARMUP + CHUNK),
+             "agc_scan": (_cuda_ms(lambda: agc_scan._launch(ap, ast, are, aim, an, AGC_WARMUP),
+                                   10), AGC_WARMUP + AGC_CHUNK)}
     time_halo_async()
     # timing launches are not a path's
     (scan._launch.launches, agc_scan._launch.launches, pll_scan._launch.launches,
      halo_async._launch.launches) = counts
     for name, v in k.items():
+        steps = v.get("steps_per_lane")
+        v["ns_per_step"] = v["ms"] * 1e6 / steps if steps else None
         log(f"timing: {name}: kernel {v['ms']:.4f} ms, plain PyTorch "
             f"{v['plain_ms']:.1f} ms, bound {v.get('bound_ms', float('nan')):.6f} ms, "
-            f"library {v.get('library_ms')}")
-    log(f"timing: pll_scan exact L={N_OUT_4M}: kernel {pll96:.4f} ms")
+            f"library {v.get('library_ms')}, steps/lane {steps}, "
+            f"ns/step {v['ns_per_step']}")
+    log(f"timing: pll_scan exact L={N_OUT_4M}: kernel {pll96:.4f} ms, "
+        f"ns/step {pll96 * 1e6 / N_OUT_4M:.1f}")
+    log(f"timing: am_front_scan entry scan (exact, L={WARMUP}): kernel {entry_ms:.4f} ms, "
+        f"ns/step {entry_ms * 1e6 / WARMUP:.1f}")
+    for name, (ms, steps) in alone.items():
+        log(f"timing: {name} launch alone at its main shape: {ms:.4f} ms, "
+            f"ns/step {ms * 1e6 / steps:.1f} (the wrapper's call: {k[name]['ms']:.4f} ms)")
 
+
+# the kernels redesigned as staged pipelines (csrc/scan_step.cuh)
+STAGED = ("am_front_scan", "agc_scan")
 
 PHASES = [("build", phase_build), ("kernel", phase_kernel), ("chain", phase_chain),
           ("width", phase_width), ("sharded", phase_sharded), ("compat", phase_compat),
@@ -844,7 +950,9 @@ def main() -> int:
         "launches": k[name]["launches"], "max_abs_err": k[name]["max_abs_err"],
         "ms": k[name]["ms"], "plain_ms": k[name]["plain_ms"],
         "bound_ms": k[name]["bound_ms"], "bound_by": k[name]["bound_by"],
-        "library_ms": k[name].get("library_ms")} for name, source, replaces in KERNELS]}))
+        "library_ms": k[name].get("library_ms"),
+        "steps_per_lane": k[name].get("steps_per_lane"),
+        "ns_per_step": k[name].get("ns_per_step")} for name, source, replaces in KERNELS]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

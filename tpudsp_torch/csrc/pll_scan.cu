@@ -13,11 +13,12 @@
 //
 // Math, per sample, as pll.py's step: v = x e^{-j theta} written as
 // (xr cos + xi sin, xi cos - xr sin); err = atan2f(Im v, Re v) -- libm
-// atan2, as pll.py:57, not the polynomial of am_front_scan.cu; the output
+// atan2, as pll.py:57, not the polynomial of am_front_scan.cu; sin and cos
+// from one sincosf, which returns the bits of sinf and cosf; the output
 // is theta BEFORE the update; freq += alpha err; theta = wrap(theta +
 // beta err + freq) with the floor-mod wrap of scan_step.cuh.
 //
-// Bound. A lane is a chain of dependent steps (sinf, cosf, atan2f, fmodf);
+// Bound. A lane is a chain of dependent steps (sincosf, atan2f, the wrap);
 // the exact route is one lane, so the kernel runs one thread and is bound
 // by that chain's latency, not by the 12 bytes per sample it moves (about
 // 0.34 us for 96000 samples at 3.35 TB/s). The design keeps theta and freq
@@ -46,8 +47,8 @@ pll_scan_kernel(const float* __restrict__ scal,
   float freq = fr0[c];
 
   auto step = [&](float xr, float xi) {
-    const float co = cosf(theta);
-    const float si = sinf(theta);
+    float si, co;
+    sincosf(theta, &si, &co);
     const float vr = xr * co + xi * si;
     const float vi = xi * co - xr * si;
     const float err = atan2f(vi, vr);

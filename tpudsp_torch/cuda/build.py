@@ -5,12 +5,14 @@ by ``nvcc`` (no PyTorch headers, so a build takes seconds) into
 ``tpudsp_torch/_build/lib<name>.so``, which ``.gitignore`` lists:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false
-         -shared -Xcompiler -fPIC -o _build/lib<name>.so csrc/<name>.cu
+         -Xptxas -v -shared -Xcompiler -fPIC -o _build/lib<name>.so csrc/<name>.cu
 
 ``-fmad=false`` keeps every multiply and add rounded on its own, as the
 plain PyTorch versions round them; there is no ``--use_fast_math``.
 A library is rebuilt when its source, or any header in ``csrc/`` (the
-sources share ``scan_step.cuh``), is newer than it.
+sources share ``scan_step.cuh``), is newer than it. ptxas's report of each
+kernel's registers, shared memory and spills (``-Xptxas -v``) is kept
+beside the library as ``_build/lib<name>.ptxas.txt``.
 """
 
 from __future__ import annotations
@@ -71,13 +73,19 @@ def compile_source(name: str) -> Path:
         return out
     BUILD.mkdir(exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc(), ARCH, "-std=c++17", "-O3", "-fmad=false", "-shared",
-           "-Xcompiler", "-fPIC", "-o", str(tmp), str(src)]
+    cmd = [nvcc(), ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xptxas", "-v",
+           "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp), str(src)]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed for {src.name}:\n{res.stderr}")
+    ptxas_report_path(name).write_text(res.stderr)
     os.replace(tmp, out)
     return out
+
+
+def ptxas_report_path(name: str) -> Path:
+    """Where ``compile_source`` keeps ptxas's report for csrc/<name>.cu."""
+    return BUILD / f"lib{name}.ptxas.txt"
 
 
 def load(name: str) -> ctypes.CDLL:
