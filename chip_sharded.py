@@ -20,7 +20,9 @@ Checks, each of which fails the run (exit code 1):
   state: every rank returns the same pcm; async against ppermute
   >= 100 dB; each against the single-card AMReceiver on rank 0 (same
   blocks, same block length) >= 100 dB past the first block; all finite;
-- every rank launched the halo_async kernel in the async run.
+- every rank launched the halo_async kernel in the async run;
+- every rank launched first_order_scan twice a block in each run (the DC
+  tracker's rows and the de-emphasis).
 
 Then times one block per mode (chip_smoke's ``_block_times``: median of
 5 calls after a warm-up call, with spread; the slowest rank's) and the
@@ -47,7 +49,7 @@ def rank_main(rank: int, T: int, port: int):
     import torch.distributed as dist
     sys.path.insert(0, str(ROOT))
     from tpudsp_torch.chains.am import AMConfig, AMReceiver
-    from tpudsp_torch.cuda import halo_async
+    from tpudsp_torch.cuda import first_order, halo_async
     from tpudsp_torch.parallel import ShardedAMReceiver, make_mesh
     torch.cuda.set_device(rank)
     dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
@@ -61,13 +63,14 @@ def rank_main(rank: int, T: int, port: int):
         blocks = [torch.from_numpy(iq[k * block:(k + 1) * block]).cuda() for k in range(3)]
         mesh = make_mesh(1, T)
         rxs = {h: ShardedAMReceiver(cfg, mesh, block, halo=h) for h in ("async", "ppermute")}
-        pcm, launches = {}, {}
+        pcm, launches, tails = {}, {}, {}
         for h, rx in rxs.items():
             torch.cuda.synchronize()
-            halo_async._launch.launches = 0            # the run starts
+            halo_async._launch.launches = first_order._launch.launches = 0   # the run starts
             y = torch.cat([rx(b) for b in blocks])
             torch.cuda.synchronize()
             launches[h] = halo_async._launch.launches  # ... and ends
+            tails[h] = first_order._launch.launches
             same = y.clone()
             dist.broadcast(same, src=0)
             ok = torch.tensor([int(torch.equal(same, y))], device="cuda")
@@ -75,6 +78,9 @@ def rank_main(rank: int, T: int, port: int):
             pcm[h] = (y.cpu().numpy(), bool(ok))
         n_launch = torch.tensor([launches["async"]], device="cuda")
         dist.all_reduce(n_launch, op=dist.ReduceOp.MIN)
+        tail = torch.tensor(list(tails.values()) * 2, device="cuda")
+        dist.all_reduce(tail[:2], op=dist.ReduceOp.MIN)
+        dist.all_reduce(tail[2:], op=dist.ReduceOp.MAX)
 
         times = {}
         for h, rx in rxs.items():       # every rank times its calls; the slowest's
@@ -97,14 +103,16 @@ def rank_main(rank: int, T: int, port: int):
                 + ", ".join(f"{k} {v:.2f} dB" for k, v in snr.items())
                 + f" (bar 100); every rank the same pcm: async {same_a}, "
                 f"ppermute {same_p}; all finite {finite}; halo_async launches "
-                f"on each rank >= {int(n_launch)}")
+                f"on each rank >= {int(n_launch)}; first_order_scan launches per rank "
+                f"(async, ppermute) from {tail[:2].tolist()} to {tail[2:].tolist()} "
+                f"(expected {2 * len(blocks)})")
             rates = {}
             for name, (med, spread) in times.items():
                 rates[name] = block / med
                 log(f"timing: {name}, {block}-sample block: median {med * 1e3:.3f} ms "
                     f"of 5 (spread {spread * 100:.1f}%), {block / med / 1e6:.1f} Msamp/s")
             ok = (finite and same_a and same_p and min(snr.values()) >= 100.0
-                  and int(n_launch) > 0)
+                  and int(n_launch) > 0 and set(tail.tolist()) == {2 * len(blocks)})
             summary = {"ok": ok, "ranks": T, "block": block, "snr_db": snr,
                        "samples_per_s": rates}
             log(json.dumps(summary))

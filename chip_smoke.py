@@ -1,19 +1,22 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (tpudsp_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
 Run from the root of a checkout, on a machine with a CUDA device and the
-CUDA toolkit. Phases, each of which fails the run (exit code 1, no final
-result line) if it fails:
+CUDA toolkit. ``--parent DIR`` names a checkout of an earlier commit (its
+files unpacked, e.g. by ``git archive``): the run then also holds pll_scan
+bit for bit against DIR's kernel, built from DIR's source, and counts the
+launches of one AM block with DIR's package in a second process. Phases,
+each of which fails the run (exit code 1, no final result line) if it
+fails:
 
 1. build   -- compile every kernel of the port from csrc/ with nvcc, one
               process per source, all at once, print the seconds it took
-              and ptxas's registers, shared memory and spills of the two
-              staged scan kernels;
+              and ptxas's registers, shared memory and spills of each;
 2. kernel  -- each CUDA kernel against its plain PyTorch version on the
               card, at the shapes its paths give it and at the shapes
-              where the staged scans' bookkeeping could go wrong:
+              where the kernels' bookkeeping could go wrong:
               am_front_scan: the AM receiver's shape (one stream, 96000
                 samples, chunk = warmup = 3840: 25 lanes), a ragged
                 3-stream batch with squelch on, the same batch at chunk
@@ -33,17 +36,28 @@ result line) if it fails:
                 XLA route, and
                 the exact single-lane launch at the README AMRadio's
                 callback shape;
-              pll_scan: the chunked scan over 96,000 samples and the exact
-                single-lane launch at the AMRadio's callback shape;
+              pll_scan: the chunked scan over 96,000 samples, the exact
+                single-lane launch at the AMRadio's callback shape, a
+                ragged 3-stream batch at its default chunk and at chunk 50,
+                and states that take the unbounded instance (theta = 20,
+                freq = -9), chunked and exact;
+              first_order_scan: one recurrence with the DC tracker's and
+                the de-emphasis's coefficients at 96,000 samples, ragged
+                lengths 12,345, 7 and 32, 3 rows with distinct carries,
+                two chained calls, and linear_tail_scan (the AM
+                receiver's whole tail) at 96,000 samples with and without
+                DC tracking;
               halo_async: the async-halo front end on a 1x1 mesh at the AM
                 shape (a 4M-sample c64 shard, the AM design's 3 phases of
                 24 x 125 offset-folded real taps) and at the bank shape (16
                 channels of 128 taps decimating by 10, 4M samples of c64,
                 int16 and uint8), each with a random carried tail.
-              am_front_scan and agc_scan must equal their plain versions
-              bit for bit (outputs, modes and final states); pll_scan must
-              reach 90 dB SNR with close final states; halo_async must
-              reach 110 dB (it sums in another order than cuBLAS);
+              am_front_scan, agc_scan and first_order_scan must equal
+              their plain versions bit for bit (outputs, modes and final
+              states); pll_scan must reach 90 dB SNR with close final
+              states (and equal, with --parent, the parent's kernel bit for
+              bit); halo_async must reach 110 dB (it sums in another order
+              than cuBLAS);
 3. chain   -- AMReceiver on the card over two 2M-sample blocks against the
               float64 sample-serial oracle chain (numpy, on the host):
               >= 100 dB over the settled second half;
@@ -65,13 +79,20 @@ result line) if it fails:
               agc_scan and pll_scan launched during this path. Then
               AGC(throughput_mode=True, use_pallas=True) over three
               4M-sample blocks with carried state: finite, agc_scan launched;
-7. timing  -- per-format block time of the AM receiver, per-mode block time
-              of the sharded receiver, per-callback time of the AMRadio
-              (median of 5 with spread), and each kernel's time against
-              its plain version's at its main shape, with the scans' ns
-              per dependent step, the two staged kernels' launches alone
-              and the sharded receiver's entry scan (and halo_async's
-              against one torch.nn.functional.conv1d call, TF32 off).
+7. timing  -- per-format block time of the AM receiver (host clock and CUDA
+              events), per-mode block time of the sharded receiver,
+              per-callback time of the AMRadio (median of 5 with spread),
+              one torch.profiler window over a c64 block (kernel launches
+              and the device's busy share), and each kernel's time against
+              its plain version's at its main shape, with the scans' ns per
+              dependent step, the two staged kernels' launches alone and
+              the sharded receiver's entry scan (and halo_async's against
+              one torch.nn.functional.conv1d call, TF32 off).
+
+Phases 3-6 also count first_order_scan's launches on their path: one per
+AMReceiver block, two per ShardedAMReceiver block (the DC tracker's rows
+and the de-emphasis), two per AMRadio callback (AmpModem's DC tracker and
+DeemphasisFilter), and fail on another count.
 
 Prints the card's name and power limit first, a "kernels" JSON line before
 the last (per kernel: launches on its path, max abs error against its plain
@@ -86,7 +107,11 @@ is run outside a checkout of the repository.
 
 from __future__ import annotations
 
+import argparse
+import contextlib
+import ctypes
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -110,6 +135,11 @@ HBM_BPS = 3.35e12           # H100 SXM: device memory rate
 F32_FLOPS = 67e12           # H100 SXM: f32 rate outside the tensor cores
 # f32 operations per sample of each scan step (a transcendental counts one)
 OPS_AGC, OPS_PLL = 25, 20
+# f32 operations per sample of one blocked first-order recurrence: the
+# within-block sum's 32 multiplies and 32 adds
+OPS_FIRST_ORDER = 64
+DC_RHO = 0.9995             # the AM receiver's DC tracker pole
+PARENT: Path | None = None  # --parent: a checkout of an earlier commit
 
 results: dict = {"kernels": {}}
 
@@ -251,8 +281,8 @@ def phase_build():
     for name in build.SIGNATURES:
         build.load(name)
     log(f"build: {len(libs)} kernel source(s) in {time.perf_counter() - t0:.2f} s")
-    # registers, shared memory and spills of the staged scan kernels
-    for name in STAGED:
+    # registers, shared memory and spills of every kernel
+    for name in build.SIGNATURES:
         report = build.ptxas_report_path(name)
         lines = report.read_text().splitlines() if report.exists() else ["no report"]
         for line in lines:
@@ -311,6 +341,13 @@ def _compare_pll(name, kernel_out, ref_out, snr_bar=90.0):
         raise AssertionError(f"kernel[{name}] disagrees with its plain version")
     _close_theta(name, kf, rf)
     return max_err
+
+
+def _expect_launches(path: str, got: int, want: int):
+    """first_order_scan's launches on a path: exactly ``want``."""
+    log(f"{path}: first_order_scan launches {got} (expected {want})")
+    if got != want:
+        raise AssertionError(f"{path}: first_order_scan launched {got} times, not {want}")
 
 
 def _record(name, max_err, plain_ms, **kw):
@@ -378,11 +415,10 @@ def _compare_halo(name, case, snr_bar=110.0):
     return max_err, plain_ms
 
 
-def phase_kernel():
+def kernel_front():
+    """am_front_scan's cases; returns its main input and the callback's."""
     import torch
-    from tpudsp_torch.cuda import agc_scan, pll_scan
     from tpudsp_torch.cuda import am_backend_scan as scan
-    from tpudsp_torch.kernels import agc as kagc
     from tpudsp_torch.kernels import am_backend as kab
     # am_front_scan at the AM receiver's shape: one stream of 96000
     # pcm-rate samples (a 4M block)
@@ -393,13 +429,7 @@ def phase_kernel():
     _record("am_front_scan", _compare(
         "am_front_scan C=1 L=96000", scan.front_chunked(p, st, x, CHUNK, WARMUP),
         ref), plain_ms)
-    # ragged batch, squelch on: loud / quiet / loud-then-quiet streams with
-    # settled rssi near -10 dB and -60 dB, far from the -35 dB threshold
-    L = 50_000 - 77
-    xs = np.stack([am_signal(L, 48_000.0, 150.0 * (c + 1), amp)
-                   for c, amp in enumerate((0.3, 0.001, 0.3))])
-    xs[2, L // 2:] *= 0.003
-    xs = torch.from_numpy(xs).to(DEV)
+    xs = ragged_batch()
     p, st = front_params(squelch=True, threshold=-35.0), front_state(3, squelch=True)
     _compare("am_front_scan ragged C=3 squelch",
              scan.front_chunked(p, st, xs, CHUNK, WARMUP),
@@ -441,9 +471,7 @@ def phase_kernel():
     # stream 1; chunked and exact launches, and a loop gain of 0.05, whose
     # stages are never bounded
     p, st = front_params(), front_state(3)
-    st = kab.FrontState(st.agc, kab.PllState(
-        torch.tensor([0.0, 20.0, 0.0], device=DEV),
-        torch.tensor([0.0, 0.0, -9.0], device=DEV)))
+    st = kab.FrontState(st.agc, unbounded_pll_state())
     xu = xs[:, :20_000].contiguous()
     _compare("am_front_scan unbounded PLL C=3 chunk=1000 warmup=2500",
              scan.front_chunked(p, st, xu, 1000, 2500),
@@ -456,7 +484,35 @@ def phase_kernel():
     _compare("am_front_scan PLL gain 0.05 C=3 chunk=1000 warmup=2500",
              scan.front_chunked(pw, st, xu, 1000, 2500),
              scan.front_chunked_ref(pw, st, xu, 1000, 2500))
+    return x, xc
 
+
+def ragged_batch():
+    """A ragged 3-stream batch (49,923 samples): loud / quiet /
+    loud-then-quiet streams whose settled rssi lies near -10 dB and -60 dB,
+    far from a -35 dB squelch threshold."""
+    import torch
+    L = 50_000 - 77
+    xs = np.stack([am_signal(L, 48_000.0, 150.0 * (c + 1), amp)
+                   for c, amp in enumerate((0.3, 0.001, 0.3))])
+    xs[2, L // 2:] *= 0.003
+    return torch.from_numpy(xs).to(DEV)
+
+
+def unbounded_pll_state():
+    """PLL states of 3 streams that take the PLL's unbounded instance:
+    theta = 20 on stream 1, freq = -9 on stream 2, stream 0 from rest."""
+    import torch
+    from tpudsp_torch.kernels.pll import PllState
+    return PllState(torch.tensor([0.0, 20.0, 0.0], device=DEV),
+                    torch.tensor([0.0, 0.0, -9.0], device=DEV))
+
+
+def kernel_agc(xc):
+    """agc_scan's cases; returns its main input."""
+    import torch
+    from tpudsp_torch.cuda import agc_scan
+    from tpudsp_torch.kernels import agc as kagc
     # agc_scan at its main shape: the AGC op's Pallas route on one 4M block
     x4 = torch.from_numpy(am_signal(BLOCK_4M, 2e6, 200.0, noise=0.01,
                                     seed=4)[None]).to(DEV)
@@ -469,47 +525,221 @@ def phase_kernel():
         agc_scan.agc_chunked_pallas(ap, st, x4, AGC_CHUNK, AGC_WARMUP), ref),
         plain_ms)
     _compare("agc_scan xla route L=4M chunk=warmup=3840",
-                 agc_scan.agc_chunked(ap, st, x4, CHUNK, WARMUP),
-                 kagc.agc_apply_chunked(ap, st, x4, CHUNK, WARMUP))
+             agc_scan.agc_chunked(ap, st, x4, CHUNK, WARMUP),
+             kagc.agc_apply_chunked(ap, st, x4, CHUNK, WARMUP))
+    xs = ragged_batch()
     apq = kagc.make_params(alpha=0.01, scale=0.01, squelch=True,
                            threshold=-35.0, device=DEV)
     stq = agc_state(3, squelch=True)
     _compare("agc_scan pallas route ragged C=3 squelch",
-                 agc_scan.agc_chunked_pallas(apq, stq, xs, AGC_CHUNK, AGC_WARMUP),
-                 agc_scan.agc_chunked_pallas_ref(apq, stq, xs, AGC_CHUNK, AGC_WARMUP))
+             agc_scan.agc_chunked_pallas(apq, stq, xs, AGC_CHUNK, AGC_WARMUP),
+             agc_scan.agc_chunked_pallas_ref(apq, stq, xs, AGC_CHUNK, AGC_WARMUP))
     # the staging edges: chunk 1000 (not a multiple of the stage depth),
     # warmup 3750 = 3.75 chunks (a stage crosses a chunk boundary inside the
     # warmup, and the warmup / chunk boundary), 150 lanes, ragged, squelch
     _compare("agc_scan pallas route ragged C=3 squelch chunk=1000 warmup=3750",
-                 agc_scan.agc_chunked_pallas(apq, stq, xs, 1000, 3750),
-                 agc_scan.agc_chunked_pallas_ref(apq, stq, xs, 1000, 3750))
+             agc_scan.agc_chunked_pallas(apq, stq, xs, 1000, 3750),
+             agc_scan.agc_chunked_pallas_ref(apq, stq, xs, 1000, 3750))
     _compare("agc_scan pallas route ragged C=3 squelch chunk=50 warmup=1030",
-                 agc_scan.agc_chunked_pallas(apq, stq, xs, 50, 1030),
-                 agc_scan.agc_chunked_pallas_ref(apq, stq, xs, 50, 1030))
+             agc_scan.agc_chunked_pallas(apq, stq, xs, 50, 1030),
+             agc_scan.agc_chunked_pallas_ref(apq, stq, xs, 50, 1030))
     _compare("agc_scan xla route ragged C=3 squelch chunk=warmup=3840",
-                 agc_scan.agc_chunked(apq, stq, xs, CHUNK, WARMUP),
-                 kagc.agc_apply_chunked(apq, stq, xs, CHUNK, WARMUP))
+             agc_scan.agc_chunked(apq, stq, xs, CHUNK, WARMUP),
+             kagc.agc_apply_chunked(apq, stq, xs, CHUNK, WARMUP))
     # the exact single-lane launch at the AMRadio callback's shape
     ref, plain_ms = timed(lambda: kagc.agc_apply(ap, st, xc))
     _record("agc_scan exact", _compare(
         f"agc_scan exact L={N_CALLBACK_OUT}", agc_scan.agc_exact(ap, st, xc), ref),
         plain_ms)
+    return x4
 
-    # pll_scan: the chunked scan over 96000 samples, and the exact
-    # single-lane launch at the AMRadio callback's shape (its main path)
+
+def parent_library(name: str):
+    """csrc/<name>.cu of the --parent checkout, built as build.py builds
+    the port's sources, loaded with the same entry points."""
+    from tpudsp_torch.cuda import build
+    build.BUILD.mkdir(exist_ok=True)
+    out = build.BUILD / f"lib{name}_parent.so"
+    res = subprocess.run(build.command(PARENT / "tpudsp_torch" / "csrc" / f"{name}.cu", out),
+                         capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed for the parent's {name}.cu:\n{res.stderr}")
+    lib = ctypes.CDLL(str(out))
+    for fn, argtypes in build.SIGNATURES[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    return lib
+
+
+@contextlib.contextmanager
+def library_swapped(name: str, lib):
+    """The wrappers of csrc/<name>.cu launch ``lib``'s kernel meanwhile."""
+    from tpudsp_torch.cuda import build
+    own = build.load(name)
+    build._libs[name] = lib
+    try:
+        yield
+    finally:
+        build._libs[name] = own
+
+
+def kernel_pll(x, xc):
+    """pll_scan's cases: the plain version (>= 90 dB, and whether bit-equal
+    is logged) and, with --parent, the parent's kernel bit for bit."""
+    import torch
+    from tpudsp_torch.cuda import pll_scan
     from tpudsp_torch.kernels import pll as kpll
     z = lambda: torch.zeros(1, device=DEV)
     pst = kpll.PllState(z(), z())
+    st3 = kpll.PllState(torch.zeros(3, device=DEV), torch.zeros(3, device=DEV))
     bw = 0.001
-    _compare_pll("pll_scan chunked L=96000",
-                 pll_scan.pll_carrier_scan_chunked(pst, x, bw),
-                 kpll.pll_carrier_scan_chunked(pst, x, bw))
-    ref, plain_ms = timed(lambda: kpll.pll_carrier_scan(pst, xc, bw))
-    _record("pll_scan", _compare_pll(f"pll_scan exact L={N_CALLBACK_OUT}",
-                                     pll_scan.pll_carrier_scan(pst, xc, bw), ref),
-            plain_ms)
-    results["inputs"] = dict(x96k=x, x4m=x4, xc=xc)
+    xs = ragged_batch()
+    xu = xs[:, :20_000].contiguous()
+    ust = unbounded_pll_state()
+    cases = [  # (name, kernel call, plain call)
+        ("pll_scan chunked L=96000",
+         lambda: pll_scan.pll_carrier_scan_chunked(pst, x, bw),
+         lambda: kpll.pll_carrier_scan_chunked(pst, x, bw)),
+        (f"pll_scan exact L={N_CALLBACK_OUT}",
+         lambda: pll_scan.pll_carrier_scan(pst, xc, bw),
+         lambda: kpll.pll_carrier_scan(pst, xc, bw)),
+        # a ragged last chunk: the padded lanes' state re-derived exactly
+        ("pll_scan chunked ragged C=3 L=49923",
+         lambda: pll_scan.pll_carrier_scan_chunked(st3, xs, bw),
+         lambda: kpll.pll_carrier_scan_chunked(st3, xs, bw)),
+        # a chunk shorter than a stage, ragged
+        ("pll_scan chunked ragged C=3 chunk=50 warmup=1030",
+         lambda: pll_scan.pll_carrier_scan_chunked(st3, xs, bw, 50, 1030),
+         lambda: kpll.pll_carrier_scan_chunked(st3, xs, bw, 50, 1030)),
+        # the unbounded instance: theta = 20, freq = -9
+        ("pll_scan unbounded C=3 chunk=1000 warmup=2500",
+         lambda: pll_scan.pll_carrier_scan_chunked(ust, xu, bw, 1000, 2500),
+         lambda: kpll.pll_carrier_scan_chunked(ust, xu, bw, 1000, 2500)),
+        (f"pll_scan unbounded exact C=3 L={N_CALLBACK_OUT}",
+         lambda: pll_scan.pll_carrier_scan(ust, xu[:, :N_CALLBACK_OUT], bw),
+         lambda: kpll.pll_carrier_scan(ust, xu[:, :N_CALLBACK_OUT], bw)),
+    ]
+    parent = parent_library("pll_scan") if PARENT else None
+    for name, kernel_call, plain_call in cases:
+        out = kernel_call()
+        if name.startswith("pll_scan exact"):
+            ref, plain_ms = timed(plain_call)
+            _record("pll_scan", _compare_pll(name, out, ref), plain_ms)
+        else:
+            _compare_pll(name, out, plain_call())
+        if parent is not None:
+            with library_swapped("pll_scan", parent):
+                old = kernel_call()
+            torch.cuda.synchronize()
+            same = _bits_equal((*out[0], out[1]), (*old[0], old[1]))
+            log(f"kernel[{name}]: bit-equal to the parent's kernel {same}")
+            if not same:
+                raise AssertionError(f"kernel[{name}] differs from the parent's kernel")
 
+
+def first_order_inputs(n: int, rows: int = 0, seed: int = 0):
+    """A pcm-rate vr as the AM front leaves it (a DC level, the 1 kHz
+    message, noise) of n samples, or ``rows`` rows of it, on the card."""
+    import torch
+    rng = np.random.default_rng(seed)
+    t = np.arange(n)
+    shape = (rows, n) if rows else (n,)
+    v = 0.3 + 0.15 * np.sin(2 * np.pi * 1000 / 48_000 * t) + 0.01 * rng.standard_normal(shape)
+    return torch.from_numpy(v.astype(np.float32)).to(DEV)
+
+
+def tail_params(carrier: bool):
+    """The AM receiver's linear-tail parameters (AMConfig(): rho = 0.9995,
+    75 us de-emphasis at 48 kHz, modulation 0.5); DC tracking only with a
+    carrier."""
+    import torch
+    from tpudsp_torch.design import iirdes
+    from tpudsp_torch.kernels import agc as kagc
+    from tpudsp_torch.kernels import am_backend as kab
+    return kab.make_params(kagc.make_params(alpha=0.01, scale=0.01, device=DEV),
+                           torch.tensor(0.5, device=DEV),
+                           *iirdes.deemphasis_coeffs(48_000.0), carrier=carrier)
+
+
+def _compare_exact(name, kernel_out, ref_out):
+    """Every tensor of kernel_out equals ref_out's bit for bit."""
+    import torch
+    torch.cuda.synchronize()
+    shapes = all(k.shape == r.shape for k, r in zip(kernel_out, ref_out))
+    same = shapes and _bits_equal(kernel_out, ref_out)
+    max_err = max(float((k.double() - r.double()).abs().max())
+                  for k, r in zip(kernel_out, ref_out)) if shapes else float("inf")
+    log(f"kernel[{name}]: max_abs_err {max_err:.3e}, bit-equal {same}")
+    if not same:
+        raise AssertionError(f"kernel[{name}] is not bit-equal to its plain version")
+    return max_err
+
+
+def linear_tail_f64(p, dc0: float, de0: float, vr):
+    """The AM receiver's linear tail in float64 on the host (scipy's
+    lfilter for the two recurrences), from the carries dc0, de0."""
+    import scipy.signal as sig
+    v = vr.double().cpu().numpy()
+    dc = sig.lfilter([1.0 - p.dc_rho], [1.0, -p.dc_rho], v, zi=[p.dc_rho * dc0])[0]
+    audio = (v - dc * float(p.use_dc)) * float(p.inv_mod)
+    return sig.lfilter([p.deemph_b0], [1.0, -p.deemph_a], audio, zi=[p.deemph_a * de0])[0]
+
+
+def kernel_first_order():
+    """first_order_scan's cases, each bit for bit against its plain version
+    (kernels/iir) on the same card."""
+    import torch
+    from tpudsp_torch.cuda import first_order as fo
+    from tpudsp_torch.design import iirdes
+    from tpudsp_torch.kernels import iir as kiir
+    dc = (1.0 - DC_RHO, DC_RHO)
+    de = iirdes.deemphasis_coeffs(48_000.0)
+    y0 = lambda v: torch.tensor(v, dtype=torch.float32, device=DEV)
+    x96 = first_order_inputs(N_OUT_4M, seed=1)
+    cases = [
+        ("DC tracker n=96000", dc, y0(0.25), x96),
+        ("de-emphasis n=96000", de, y0(-0.5), x96),
+        ("DC tracker ragged n=12345", dc, y0(0.1), first_order_inputs(12_345, seed=2)),
+        ("DC tracker n=7", dc, y0(0.3), first_order_inputs(7, seed=3)),
+        ("de-emphasis n=32", de, y0(0.3), first_order_inputs(32, seed=4)),
+        ("DC tracker C=3 rows distinct carries n=12345", dc,
+         torch.tensor([0.0, 0.5, -1.0], device=DEV), first_order_inputs(12_345, 3, seed=5)),
+    ]
+    for name, (b0, a), yp, xin in cases:
+        _compare_exact(f"first_order_scan {name}",
+                       fo.first_order_apply_blocked(b0, a, yp, xin),
+                       kiir.first_order_apply_blocked(b0, a, yp, xin))
+    # two chained calls, the second from the first's y_last
+    x2 = first_order_inputs(2 * 12_345, seed=6)
+    k1 = fo.first_order_apply_blocked(*dc, y0(0.2), x2[:12_345])
+    k2 = fo.first_order_apply_blocked(*dc, k1[0], x2[12_345:])
+    r1 = kiir.first_order_apply_blocked(*dc, y0(0.2), x2[:12_345])
+    r2 = kiir.first_order_apply_blocked(*dc, r1[0], x2[12_345:])
+    _compare_exact("first_order_scan DC tracker two chained calls n=12345", k1 + k2, r1 + r2)
+    # linear_tail_scan at the AM shape, with and without DC tracking
+    for carrier in (True, False):
+        p = tail_params(carrier)
+        k = fo.linear_tail(p, y0(0.3), y0(-0.1), x96)
+        ref, plain_ms = timed(lambda: kiir.linear_tail(p, y0(0.3), y0(-0.1), x96))
+        err = _compare_exact(f"linear_tail_scan n=96000 use_dc {int(carrier)}",
+                             (k[1], *k[0]), (ref[1], *ref[0]))
+        # the tail's own accuracy, against float64 recurrences
+        s = snr_db(linear_tail_f64(p, 0.3, -0.1, x96), k[1].cpu().numpy())
+        log(f"kernel[linear_tail_scan n=96000 use_dc {int(carrier)}]: vs float64 {s:.2f} dB "
+            f"(bar 130)")
+        if not s >= 130.0:
+            raise AssertionError("linear_tail_scan is less accurate than its bar")
+        if carrier:
+            _record("first_order_scan", err, plain_ms)
+    results["inputs"]["x96_tail"] = x96
+
+
+def phase_kernel():
+    x, xc = kernel_front()
+    x4 = kernel_agc(xc)
+    kernel_pll(x, xc)
+    results["inputs"] = dict(x96k=x, x4m=x4, xc=xc)
+    kernel_first_order()
     # halo_async at the AM shape (its main path) and the bank shape
     _record("halo_async", *_compare_halo("halo_async AM shape C=3 Kc=24 D1=125 4M c64 real taps",
                                          halo_am_case(7)))
@@ -525,9 +755,13 @@ def phase_chain():
     n, block = 4_000_000, 2_000_000
     iq = am_signal(n, cfg.iq_rate, 200.0)
     y_ref = oracle_am_chain(iq, cfg)
+    from tpudsp_torch.cuda import first_order
     rx = AMReceiver(cfg, block, device=DEV)
-    y = torch.cat([rx(torch.from_numpy(iq[:block]).to(DEV)),
-                   rx(torch.from_numpy(iq[block:]).to(DEV))]).cpu().numpy()
+    blocks = [torch.from_numpy(iq[:block]).to(DEV), torch.from_numpy(iq[block:]).to(DEV)]
+    torch.cuda.synchronize()
+    first_order._launch.launches = 0               # the receiver's run starts
+    y = torch.cat([rx(b) for b in blocks]).cpu().numpy()
+    _expect_launches("chain", first_order._launch.launches, len(blocks))   # ... and ends
     settle = len(y) // 2
     s = snr_db(y_ref[settle:], y[settle:])
     log(f"chain: 2 x 2M-sample blocks vs float64 oracle chain: {s:.2f} dB "
@@ -554,16 +788,20 @@ def phase_width():
     import torch
     from tpudsp_torch.chains.am import AMConfig, AMReceiver
     from tpudsp_torch.cuda import am_backend_scan as scan
+    from tpudsp_torch.cuda import first_order
     data = wire_blocks(3, BLOCK_4M, seed=2)
     rxs = {k: AMReceiver(AMConfig(), BLOCK_4M, "c64" if k.startswith("c64") else k,
                          device=DEV) for k in data}
     gpu = {k: [torch.from_numpy(b).to(DEV) for b in v] for k, v in data.items()}
     torch.cuda.synchronize()
-    scan._launch.launches = 0                      # the receiver's run starts
+    scan._launch.launches = first_order._launch.launches = 0   # the receiver's run starts
     out = {k: torch.cat([rxs[k](b) for b in gpu[k]]) for k in data}
     torch.cuda.synchronize()
     launches = scan._launch.launches               # ... and ends
+    n_tail = first_order._launch.launches
     results["kernels"].setdefault("am_front_scan", {})["launches"] = launches
+    results["kernels"].setdefault("first_order_scan", {})["launches"] = n_tail
+    _expect_launches("width", n_tail, sum(len(v) for v in gpu.values()))
     out = {k: v.cpu().numpy() for k, v in out.items()}
     settle = N_OUT_4M  # skip the first block (PLL lock, DC tracker settling)
     finite = all(np.all(np.isfinite(v)) and v.shape == (3 * N_OUT_4M,) for v in out.values())
@@ -579,7 +817,7 @@ def phase_width():
 def phase_sharded():
     import torch
     from tpudsp_torch.chains.am import AMConfig, AMReceiver
-    from tpudsp_torch.cuda import halo_async
+    from tpudsp_torch.cuda import first_order, halo_async
     from tpudsp_torch.parallel import ShardedAMReceiver, make_mesh
     cfg = AMConfig()
     iq = am_signal(3 * BLOCK_4M, cfg.iq_rate, 200.0)
@@ -589,12 +827,16 @@ def phase_sharded():
            for h in ("async", "ppermute")}
     ref = AMReceiver(cfg, BLOCK_4M, device=DEV)
     torch.cuda.synchronize()
-    halo_async._launch.launches = 0                # the async run starts
+    halo_async._launch.launches = first_order._launch.launches = 0   # the async run starts
     y_as = torch.cat([rxs["async"](b) for b in blocks])
     torch.cuda.synchronize()
     launches = halo_async._launch.launches         # ... and ends
     results["kernels"].setdefault("halo_async", {})["launches"] = launches
+    # two per block: the DC tracker's rows and the de-emphasis
+    _expect_launches("sharded async", first_order._launch.launches, 2 * len(blocks))
+    first_order._launch.launches = 0               # the ppermute run starts
     y_pp = torch.cat([rxs["ppermute"](b) for b in blocks]).cpu().numpy()
+    _expect_launches("sharded ppermute", first_order._launch.launches, 2 * len(blocks))
     y_ref = torch.cat([ref(b) for b in blocks]).cpu().numpy()
     y_as = y_as.cpu().numpy()
     y_or = oracle_am_chain(iq, cfg)
@@ -647,7 +889,7 @@ def radio_raw(n: int, iq_rate: float = 2e6):
 def phase_compat():
     import torch
     import tpudsp_torch.compat as liquiddsp
-    from tpudsp_torch.cuda import agc_scan, pll_scan
+    from tpudsp_torch.cuda import agc_scan, first_order, pll_scan
     from tpudsp_torch.design import firdes, iirdes
     AMRadio = am_radio_class(liquiddsp)
     raw = radio_raw(N_RADIO)
@@ -658,11 +900,15 @@ def phase_compat():
         raise AssertionError(f"compat ops built on {radio.agc.device}")
     torch.cuda.synchronize()
     agc_scan._launch.launches = pll_scan._launch.launches = 0   # the path starts
+    first_order._launch.launches = 0
     for cb in callbacks:
         radio(liquiddsp.bytes_to_iq(cb))
     torch.cuda.synchronize()
     launches = {"agc_scan": agc_scan._launch.launches,         # ... and ends
-                "pll_scan": pll_scan._launch.launches}
+                "pll_scan": pll_scan._launch.launches,
+                "first_order_scan": first_order._launch.launches}
+    # two per callback: AmpModem's DC tracker and DeemphasisFilter
+    _expect_launches("compat", launches["first_order_scan"], 2 * len(callbacks))
     y = np.frombuffer(radio.pcm, np.float32)
     rate = 48_000 / 2e6
     sos = iirdes.iirdes_sos("cheby2", "lowpass", 8, 15000 / 2e6, 0.3, 0.7, 60.0)
@@ -697,6 +943,8 @@ def phase_compat():
     k = results["kernels"]
     k.setdefault("agc_scan", {})["launches"] = launches["agc_scan"] + n_agc
     k.setdefault("pll_scan", {})["launches"] = launches["pll_scan"]
+    k.setdefault("first_order_scan", {})["launches"] = (k["first_order_scan"].get("launches", 0)
+                                                        + launches["first_order_scan"])
     results["callbacks"] = callbacks
 
 
@@ -727,6 +975,64 @@ def _block_times(rx, blocks):
         times.append(time.perf_counter() - t0)
     med = statistics.median(times)
     return med, (max(times) - min(times)) / med
+
+
+def _block_device_ms(rx, blocks):
+    """Median CUDA-event time of rx on blocks[1:] (ms), each call between
+    two events on the current stream, after a warm-up call on blocks[0]."""
+    import torch
+    rx(blocks[0])
+    times = []
+    for b in blocks[1:]:
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0.record()
+        rx(b)
+        t1.record()
+        torch.cuda.synchronize()
+        times.append(t0.elapsed_time(t1))
+    return statistics.median(times)
+
+
+def profile_block(rx, blocks):
+    """One torch.profiler window (CPU and CUDA activity) over rx(blocks[1])
+    after a warm-up call on blocks[0]: the device activities (kernels,
+    copies, sets) in the window, their busy time (the union of their
+    intervals) and its share of the window, from the first event to the
+    last, and the device time of the five busiest kernels by name."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    rx(blocks[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        rx(blocks[1])
+        torch.cuda.synchronize()
+    events = list(prof.events())
+    dev = sorted((e.time_range.start, e.time_range.end) for e in events
+                 if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for t0, t1 in dev:      # the union of the device intervals
+        if t1 > end:
+            busy += t1 - max(t0, end)
+            end = t1
+    span = (max(e.time_range.end for e in events)
+            - min(e.time_range.start for e in events)) if events else 0.0
+    by_name: dict = {}
+    for e in events:
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return {"device_activities": len(dev), "busy_ms": busy / 1e3, "window_ms": span / 1e3,
+            "busy_share": busy / span if span else None,
+            "top_kernels_ms": {k[:60]: v / 1e3 for k, v in top}}
+
+
+def profile_am_block():
+    """profile_block over AMReceiver(AMConfig()) on 4M-sample c64 blocks."""
+    import torch
+    from tpudsp_torch.chains.am import AMConfig, AMReceiver
+    blocks = [torch.from_numpy(b).to(DEV) for b in wire_blocks(2, BLOCK_4M, seed=3)["c64"]]
+    return profile_block(AMReceiver(AMConfig(), BLOCK_4M, device=DEV), blocks)
 
 
 def _conv1d_call(x, tail, Tre, Tim, D1, nj):
@@ -800,19 +1106,35 @@ def phase_timing():
     import torch
     import tpudsp_torch.compat as liquiddsp
     from tpudsp_torch.chains.am import AMConfig, AMReceiver
-    from tpudsp_torch.cuda import agc_scan, pll_scan
+    from tpudsp_torch.cuda import agc_scan, first_order, pll_scan
     from tpudsp_torch.cuda import am_backend_scan as scan
     from tpudsp_torch.kernels import agc as kagc
     from tpudsp_torch.kernels import lanes
     from tpudsp_torch.kernels import pll as kpll
     from tpudsp_torch.cuda import halo_async
     from tpudsp_torch.parallel import ShardedAMReceiver, make_mesh
+    counts = (scan._launch.launches, agc_scan._launch.launches,
+              pll_scan._launch.launches, halo_async._launch.launches,
+              first_order._launch.launches)
     data = wire_blocks(6, BLOCK_4M, seed=3)     # a distinct block every call
     for fmt in ("c64", "i16", "u8"):
         rx = AMReceiver(AMConfig(), BLOCK_4M, fmt, device=DEV)
-        med, spread = _block_times(rx, [torch.from_numpy(b).to(DEV) for b in data[fmt]])
+        gpu = [torch.from_numpy(b).to(DEV) for b in data[fmt]]
+        med, spread = _block_times(rx, gpu)
+        dev_ms = _block_device_ms(rx, gpu)
         log(f"timing: AMReceiver {fmt} 4M-sample block: median {med * 1e3:.3f} ms "
-            f"of 5 (spread {spread * 100:.1f}%), {BLOCK_4M / med / 1e6:.1f} Msamp/s")
+            f"of 5 (spread {spread * 100:.1f}%), {BLOCK_4M / med / 1e6:.1f} Msamp/s; "
+            f"CUDA events median {dev_ms:.3f} ms of 5")
+    prof = profile_am_block()
+    log(f"timing: profiler, one AMReceiver c64 4M-sample block: {json.dumps(prof)}")
+    if PARENT:
+        # the same window with the parent's package, in a process of its own
+        res = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                              "--profile-root", str(PARENT)],
+                             capture_output=True, text=True, timeout=600)
+        line = res.stdout.strip().splitlines()[-1:] if res.returncode == 0 else []
+        log(f"timing: profiler, the parent's AMReceiver c64 4M-sample block: "
+            f"{line[0] if line else 'failed: ' + res.stderr[-2000:]}")
     blocks = [torch.from_numpy(b).to(DEV) for b in data["c64"]]
     for halo in ("ppermute", "async"):
         rx = ShardedAMReceiver(AMConfig(), make_mesh(1, 1, DEV), BLOCK_4M, halo=halo,
@@ -843,8 +1165,6 @@ def phase_timing():
         + ", ".join(f"{s} {statistics.median(v[1:]) * 1e3:.3f}"
                     for s, v in stages.items()))
 
-    counts = (scan._launch.launches, agc_scan._launch.launches,
-              pll_scan._launch.launches, halo_async._launch.launches)
     k = results["kernels"]
     x, x4, xc = (results["inputs"][n] for n in ("x96k", "x4m", "xc"))
     p, st = front_params(), front_state(1)
@@ -868,6 +1188,17 @@ def phase_timing():
     k["pll_scan"]["steps_per_lane"] = N_CALLBACK_OUT
     bound("pll_scan", N_CALLBACK_OUT * (8 + 4), N_CALLBACK_OUT * OPS_PLL)
     pll96 = _cuda_ms(lambda: pll_scan.pll_carrier_scan(pst, x, 0.001), 5)
+    # first_order_scan: the AM receiver's tail, one linear_tail_scan launch
+    # at its shape; its steps are the carry's 2 x 3000 dependent
+    # double-float steps
+    vr = results["inputs"]["x96_tail"]
+    tp = tail_params(True)
+    y0 = torch.zeros((), device=DEV)
+    k["first_order_scan"]["ms"] = _cuda_ms(lambda: first_order.linear_tail(tp, y0, y0, vr), 20)
+    k["first_order_scan"]["steps_per_lane"] = 2 * (-(-N_OUT_4M // 32))
+    bound("first_order_scan", N_OUT_4M * (4 + 4), N_OUT_4M * 2 * OPS_FIRST_ORDER)
+    one = {n: _cuda_ms(lambda: first_order.first_order_apply_blocked(
+        1.0 - DC_RHO, DC_RHO, y0, vr[:n]), 20) for n in (N_OUT_4M, N_CALLBACK_OUT)}
     # the two staged kernels' launches alone, on planes made beforehand: the
     # rest of a wrapper call is its plain PyTorch copies (planes, outputs,
     # the ragged tail's fix)
@@ -880,7 +1211,7 @@ def phase_timing():
     time_halo_async()
     # timing launches are not a path's
     (scan._launch.launches, agc_scan._launch.launches, pll_scan._launch.launches,
-     halo_async._launch.launches) = counts
+     halo_async._launch.launches, first_order._launch.launches) = counts
     for name, v in k.items():
         steps = v.get("steps_per_lane")
         v["ns_per_step"] = v["ms"] * 1e6 / steps if steps else None
@@ -892,13 +1223,13 @@ def phase_timing():
         f"ns/step {pll96 * 1e6 / N_OUT_4M:.1f}")
     log(f"timing: am_front_scan entry scan (exact, L={WARMUP}): kernel {entry_ms:.4f} ms, "
         f"ns/step {entry_ms * 1e6 / WARMUP:.1f}")
+    for n, ms in one.items():
+        log(f"timing: first_order_scan one recurrence (DC tracker) n={n}: kernel {ms:.4f} ms, "
+            f"ns per carry step {ms * 1e6 / -(-n // 32):.1f}")
     for name, (ms, steps) in alone.items():
         log(f"timing: {name} launch alone at its main shape: {ms:.4f} ms, "
             f"ns/step {ms * 1e6 / steps:.1f} (the wrapper's call: {k[name]['ms']:.4f} ms)")
 
-
-# the kernels redesigned as staged pipelines (csrc/scan_step.cuh)
-STAGED = ("am_front_scan", "agc_scan")
 
 PHASES = [("build", phase_build), ("kernel", phase_kernel), ("chain", phase_chain),
           ("width", phase_width), ("sharded", phase_sharded), ("compat", phase_compat),
@@ -911,10 +1242,18 @@ KERNELS = [
     # a lax.scan in the JAX package, not a Pallas kernel
     ("pll_scan", "tpudsp_torch/csrc/pll_scan.cu", "tpudsp/kernels/pll.py:45"),
     ("halo_async", "tpudsp_torch/csrc/halo_async.cu", "tpudsp/pallas/halo_async.py:43"),
+    # an einsum and a lax.scan in the JAX package, not a Pallas kernel
+    ("first_order_scan", "tpudsp_torch/csrc/first_order_scan.cu", "tpudsp/kernels/iir.py:283"),
 ]
 
 
 def main() -> int:
+    global PARENT
+    ap = argparse.ArgumentParser(description="Drive tpudsp_torch on one CUDA device.")
+    ap.add_argument("--parent", type=Path, help="a checkout of an earlier commit to hold "
+                    "pll_scan's bits and the AM block's launches against")
+    ap.add_argument("--profile-root", type=Path, help=argparse.SUPPRESS)
+    args = ap.parse_args()
     if not (ROOT / "tpudsp_torch" / "csrc").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository "
               "(tpudsp_torch/ not found)", file=sys.stderr)
@@ -923,6 +1262,13 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device", file=sys.stderr)
         return 1
+    if args.profile_root:
+        # one profiler window over an AM block with the package under the
+        # given root, for --parent's launch count; prints one JSON line
+        sys.path.insert(0, str(args.profile_root.resolve()))
+        print(json.dumps(profile_am_block()))
+        return 0
+    PARENT = args.parent.resolve() if args.parent else None
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
     log(smi.stdout.strip() or f"nvidia-smi failed: {smi.stderr.strip()}")

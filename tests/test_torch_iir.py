@@ -1,6 +1,6 @@
-"""The port's blocked first-order scan (double-float carry by log-depth
-doubling) against tpudsp's blocked scan (sequential double-float carry)
-and against the float64 serial oracle."""
+"""The port's blocked first-order scan (the plain version of
+csrc/first_order_scan.cu: sequential double-float carry, as tpudsp's)
+against tpudsp's blocked scan and against the float64 serial oracle."""
 
 import numpy as np
 import pytest
@@ -57,17 +57,3 @@ def test_blocked_scan_vs_oracle_dc_tracker():
     assert s > 100.0, f"{s:.1f} dB"
     assert float(last) == float(y[-1])
 
-
-def test_df_carry_scan_matches_float64():
-    """The doubling carry on its own: within 2^-40 relative of float64."""
-    rng = np.random.default_rng(3)
-    s = rng.standard_normal(3000).astype(np.float32)
-    c = float(np.float64(DC_RHO) ** 32)
-    hi, lo = tiir._df_carry_scan(c, torch.from_numpy(s))
-    ref = np.empty(len(s))
-    acc = 0.0
-    for i, v in enumerate(s.astype(np.float64)):
-        acc = c * acc + v
-        ref[i] = acc
-    got = hi.double().numpy() + lo.double().numpy()
-    assert np.max(np.abs(got - ref)) <= 2.0 ** -40 * np.max(np.abs(ref))

@@ -21,6 +21,8 @@ AmpModem, bytes_to_iq), with the AGC scan (``csrc/agc_scan.cu``) and the
 carrier-PLL scan (``csrc/pll_scan.cu``) as CUDA kernels; and the same AM
 receiver time-sharded on torch.distributed (``parallel.ShardedAMReceiver``),
 with the async-halo front end as the CUDA kernel ``csrc/halo_async.cu``.
+Their DC trackers and de-emphasis (the AM receiver's whole linear tail in
+one launch) are the blocked first-order scan ``csrc/first_order_scan.cu``.
 Everything runs on the card ("cuda") unless the caller asks for the CPU.
 """
 

@@ -41,11 +41,11 @@
 // (an IEEE divide, whose slow-path check is the one branch left in the
 // step, and a 6-term unfused Horner), the loop filter and the wrap. Once a
 // stage is known to keep theta in [-pi, pi] and the wrap's argument in
-// (-2 pi, 4 pi) (bounded_stage, one warp vote per stage), the PLL warp runs
-// libdevice's branch-free sincosf path and the wrap without its fmodf
-// branch: ~280 ns a step on the H100 (PERF.md). Filling the card (more,
-// shorter chunks; several streams per launch) changes the function and is
-// not done here.
+// (-2 pi, 4 pi) (scan_step.cuh's bounded_stage, one warp vote per stage),
+// the PLL warp runs libdevice's branch-free sincosf path and the wrap
+// without its fmodf branch: ~280 ns a step on the H100 (PERF.md). Filling
+// the card (more, shorter chunks; several streams per launch) changes the
+// function and is not done here.
 
 #include "scan_step.cuh"
 
@@ -60,10 +60,6 @@ constexpr int WARPS = 3;
 constexpr int WORDS = 2 * XBUF + 2 + 4;
 constexpr int SMEM = STAGE * GROUP * WORDS * sizeof(float);  // bytes per block
 static_assert(SMEM <= SMEM_MAX, "the stage buffers exceed a block's shared memory");
-
-struct PllParams {
-  float alpha, beta, use_pll;
-};
 
 __device__ __forceinline__ float patan2f(float y, float x) {
   const float ax = fabsf(x), ay = fabsf(y);
@@ -103,17 +99,6 @@ __device__ __forceinline__ float pll_step(const PllParams& p, bool live, float o
   freq = live ? fr : freq;
   theta = live ? th : theta;
   return vr;
-}
-
-// Whether every lane of the warp can run the next STAGE steps bounded:
-// |theta| <= pi (the wrap keeps it there once it has run), and
-// theta + pi + beta err + freq stays in (-2 pi, 4 pi) while |err| <= pi
-// |use_pll| and freq drifts by alpha err a step.
-__device__ __forceinline__ bool bounded_stage(const PllParams& p, float theta,
-                                              float freq) {
-  const float e = 3.2f * fabsf(p.use_pll);
-  const float reach = fabsf(freq) + STAGE * fabsf(p.alpha) * e + fabsf(p.beta) * e;
-  return __all_sync(0xffffffffu, fabsf(theta) <= PI_F && reach < 6.0f);
 }
 
 __global__ void __launch_bounds__(WARPS * GROUP)

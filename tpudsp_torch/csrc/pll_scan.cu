@@ -18,11 +18,23 @@
 // is theta BEFORE the update; freq += alpha err; theta = wrap(theta +
 // beta err + freq) with the floor-mod wrap of scan_step.cuh.
 //
-// Bound. A lane is a chain of dependent steps (sincosf, atan2f, the wrap);
-// the exact route is one lane, so the kernel runs one thread and is bound
-// by that chain's latency, not by the 12 bytes per sample it moves (about
-// 0.34 us for 96000 samples at 3.35 TB/s). The design keeps theta and freq
-// in registers; the chunked route trades 2x the steps for lanes.
+// Layout: scan_step.cuh's staged pipeline, two warps per group of 32
+// lanes, grid ceil(lanes / 32). Warp 0 runs the PLL chain (theta, freq) on
+// inputs in shared memory and stores theta with predicated stores; warp 1
+// copies the next stage's inputs into shared memory with cp.async
+// (stage_inputs: the warmup row and shift stepped, not divided) while the
+// stage runs, so no step waits on device memory. Before each stage the PLL
+// warp votes (bounded_stage): where every lane keeps theta in [-pi, pi]
+// and the wrap's argument in (-2 pi, 4 pi), the stage runs sin_cos_reduced
+// (libdevice's sincosf without its Payne-Hanek branch, the same bits) and
+// the wrap without its fmodf branch (the same bits in that range);
+// otherwise it runs sincosf and the full wrap.
+//
+// Bound. A lane is a chain of dependent steps (sincos, atan2f, the loop
+// filter, the wrap); the exact route is one lane, so the kernel runs one
+// chain and is bound by its latency, not by the 12 bytes per sample it
+// moves (about 0.34 us for 96000 samples at 3.35 TB/s). What is left on
+// the chain is atan2f itself, with the IEEE divide and its slow-path check.
 
 #include "scan_step.cuh"
 
@@ -30,46 +42,91 @@ namespace {
 
 using namespace tpudsp;
 
-__global__ void __launch_bounds__(128)
+constexpr int WARPS = 2;
+constexpr int NBUF = 2;   // input stages resident: the PLL warp's and the one in flight
+// f32 words of shared memory per lane per step of a stage: NBUF stages of
+// (re, im)
+constexpr int WORDS = 2 * NBUF;
+constexpr int SMEM = STAGE * GROUP * WORDS * sizeof(float);  // bytes per block
+static_assert(SMEM <= SMEM_MAX, "the stage buffers exceed a block's shared memory");
+
+// One step of pll.py's loop on the input (xr, xi). A step that is not live
+// keeps theta and freq. BOUNDED: the stage was voted bounded, so neither
+// sincosf's nor the wrap's branch is compiled in.
+template <bool BOUNDED>
+__device__ __forceinline__ void pll_step(const PllParams& p, bool live, float xr, float xi,
+                                         float& theta, float& freq) {
+  float si, co;
+  if (BOUNDED)
+    sin_cos_reduced(theta, si, co);
+  else
+    sincosf(theta, &si, &co);
+  const float vr = xr * co + xi * si;
+  const float vi = xi * co - xr * si;
+  const float err = atan2f(vi, vr);
+  const float fr = freq + p.alpha * err;
+  const float th = wrap_theta<BOUNDED>(theta + p.beta * err + fr);
+  freq = live ? fr : freq;
+  theta = live ? th : theta;
+}
+
+template <bool BOUNDED>
+__device__ __forceinline__ void pll_stage(const GroupLane& g, const PllParams& p, int s,
+                                          const float* sre, const float* sim,
+                                          float* theta_out, float& theta, float& freq) {
+  run_stage(g, s, sre, sim, sre, [&](int, int tau, float xr, float xi, float) {
+    store_if(g.writes(tau), theta_out + g.out_index(tau), theta);
+    pll_step<BOUNDED>(p, g.live(tau), xr, xi, theta, freq);
+  });
+}
+
+__global__ void __launch_bounds__(WARPS * GROUP)
 pll_scan_kernel(const float* __restrict__ scal,
                 const float* __restrict__ xre, const float* __restrict__ xim,
                 const float* __restrict__ th0, const float* __restrict__ fr0,
                 float* __restrict__ theta_out,
                 float* __restrict__ thN, float* __restrict__ frN,
                 int lanes, int nchunks, int chunk, int warmup) {
-  const int l = blockIdx.x * blockDim.x + threadIdx.x;
-  if (l >= lanes) return;
-  const int c = l / nchunks;   // stream
-  const int i = l % nchunks;   // chunk within the stream
-  const float alpha = scal[0];
-  const float beta = scal[1];
-  float theta = th0[c];
-  float freq = fr0[c];
+  extern __shared__ float smem[];
+  const GroupLane g(lanes, nchunks, chunk, warmup);
+  PllParams p;
+  p.alpha = scal[0];
+  p.beta = scal[1];
+  p.use_pll = 1.0f;
+  const int role = threadIdx.x / GROUP;   // 0: PLL, 1: loads
+  float* const sre = smem;
+  float* const sim = sre + NBUF * SPAN;
 
-  auto step = [&](float xr, float xi) {
-    float si, co;
-    sincosf(theta, &si, &co);
-    const float vr = xr * co + xi * si;
-    const float vi = xi * co - xr * si;
-    const float err = atan2f(vi, vr);
-    freq = freq + alpha * err;
-    theta = wrap_theta(theta + beta * err + freq);
-  };
+  // a lane beyond `lanes` starts from a fixed state and never steps
+  float theta = g.ok ? th0[g.c] : 0.0f;
+  float freq = g.ok ? fr0[g.c] : 0.0f;
 
-  const int64_t L = lanes;
-  // warmup: stream samples [i*chunk - warmup, i*chunk), those >= 0 only
-  const int64_t s0 = warmup_start(i, chunk, warmup);
-  for (int t = (s0 < 0 ? static_cast<int>(-s0) : 0); t < warmup; ++t) {
-    const int64_t src = plane_index(s0 + t, c, nchunks, chunk, L);
-    step(xre[src], xim[src]);
+  if (role == 1) {
+    stage_inputs(g, xre, xim, sre, sim, 0);
+    cp_async_wait_all();
   }
-  for (int t = 0; t < chunk; ++t) {
-    const int64_t idx = static_cast<int64_t>(t) * L + l;
-    theta_out[idx] = theta;
-    step(xre[idx], xim[idx]);
+  __syncthreads();
+  // stage s: the PLL warp runs it while the inputs of stage s + 1 arrive
+  for (int s = 0; s < g.nstages; ++s) {
+    const int b = (s % NBUF) * SPAN;
+    if (role == 0) {
+      if (bounded_stage(p, theta, freq))
+        pll_stage<true>(g, p, s, sre + b, sim + b, theta_out, theta, freq);
+      else
+        pll_stage<false>(g, p, s, sre + b, sim + b, theta_out, theta, freq);
+    } else {
+      if (s + 1 < g.nstages) {
+        const int nb = ((s + 1) % NBUF) * SPAN;
+        stage_inputs(g, xre, xim, sre + nb, sim + nb, s + 1);
+      }
+      cp_async_wait_all();
+    }
+    __syncthreads();
   }
-  thN[l] = theta;
-  frN[l] = freq;
+  if (g.ok && role == 0) {
+    thN[g.l] = theta;
+    frN[g.l] = freq;
+  }
 }
 
 }  // namespace
@@ -85,9 +142,11 @@ extern "C" int pll_scan(const float* scal, const float* xre, const float* xim,
                         int lanes, int nchunks, int chunk, int warmup,
                         void* stream) {
   if (lanes <= 0) return 0;
-  const int threads = 128;
-  const int blocks = (lanes + threads - 1) / threads;
-  pll_scan_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+  cudaError_t e = cudaFuncSetAttribute(
+      pll_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int blocks = (lanes + GROUP - 1) / GROUP;
+  pll_scan_kernel<<<blocks, WARPS * GROUP, SMEM, static_cast<cudaStream_t>(stream)>>>(
       scal, xre, xim, th0, fr0, theta, thN, frN, lanes, nchunks, chunk, warmup);
   return static_cast<int>(cudaGetLastError());
 }

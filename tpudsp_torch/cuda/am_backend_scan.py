@@ -27,11 +27,10 @@ import torch
 from ..kernels import am_backend as kab
 from ..kernels import lanes
 from ..kernels.agc import AgcState
-from ..kernels.am_backend import (
-    AmBackendParams, AmBackendState, FrontState, linear_tail,
-)
+from ..kernels.am_backend import AmBackendParams, AmBackendState, FrontState
 from ..kernels.pll import PllState
 from . import launch
+from .first_order import linear_tail
 
 KERNEL = "am_front_scan"
 
@@ -141,9 +140,10 @@ def am_backend_chunked(p: AmBackendParams, state: AmBackendState, x,
                        chunk: int, *, warmup: int):
     """Fused back end over a 1-D complex block x (N,): the feedback core as
     a one-stream ``front_chunked`` (the kernel on CUDA), then the DC
-    tracker and de-emphasis as blocked scans (kernels/am_backend.
-    linear_tail). A block with N <= chunk + warmup runs the front exactly
-    (one kernel lane on CUDA) and the same linear tail, where the JAX
+    tracker and de-emphasis as blocked scans (``cuda/first_order.
+    linear_tail``: one launch of csrc/first_order_scan.cu on CUDA). A
+    block with N <= chunk + warmup runs the front exactly (one kernel lane
+    on CUDA) and the same linear tail, where the JAX
     package runs its serial am_backend_exact. Returns (state, (pcm,
     modes))."""
     st1 = lanes.one_stream(FrontState(state.agc, state.pll))

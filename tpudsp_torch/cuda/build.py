@@ -45,6 +45,10 @@ SIGNATURES = {
     "halo_async": {
         "halo_async": [_P] * 4 + [_I] * 10 + [_P],
     },
+    "first_order_scan": {
+        "first_order_scan": [_P] * 5 + [_I] * 2 + [_P],
+        "linear_tail_scan": [_P] * 9 + [_I] * 2 + [_P],
+    },
 }
 
 _lock = threading.Lock()
@@ -73,14 +77,18 @@ def compile_source(name: str) -> Path:
         return out
     BUILD.mkdir(exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc(), ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xptxas", "-v",
-           "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp), str(src)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    res = subprocess.run(command(src, tmp), capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed for {src.name}:\n{res.stderr}")
     ptxas_report_path(name).write_text(res.stderr)
     os.replace(tmp, out)
     return out
+
+
+def command(src: Path, out: Path) -> list[str]:
+    """The nvcc command that builds the source ``src`` into ``out``."""
+    return [nvcc(), ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xptxas", "-v",
+            "-shared", "-Xcompiler", "-fPIC", "-o", str(out), str(src)]
 
 
 def ptxas_report_path(name: str) -> Path:

@@ -23,11 +23,12 @@ def on_cuda(kernel: str, device):
         raise ValueError(f"{kernel} runs on CUDA tensors, got {device}")
 
 
-def launch(kernel: str, device, *args):
-    """Call the C entry point ``kernel`` of csrc/<kernel>.cu on ``device``'s
-    current stream with ``args`` (tensors as their data pointers, ints as
-    they are); raise if the launch was refused."""
-    lib = build.load(kernel)
+def launch(kernel: str, device, *args, source: str | None = None):
+    """Call the C entry point ``kernel`` of csrc/<source>.cu (``source``
+    defaults to ``kernel``) on ``device``'s current stream with ``args``
+    (tensors as their data pointers, ints as they are); raise if the launch
+    was refused."""
+    lib = build.load(source or kernel)
     args = [a.data_ptr() if torch.is_tensor(a) else a for a in args]
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream

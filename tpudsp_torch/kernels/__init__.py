@@ -2,7 +2,7 @@
 counterparts of ``tpudsp.kernels``, in plain PyTorch. The sequential scans
 here are the plain versions of the CUDA kernels in ``cuda/``;
 ``ampmodem.ampdemod_apply`` reaches its carrier-PLL kernel through
-``cuda/pll_scan``."""
+``cuda/pll_scan`` and its DC tracker's through ``cuda/first_order``."""
 
 import torch
 

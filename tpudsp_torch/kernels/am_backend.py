@@ -21,7 +21,9 @@ TPU kernel uses, in both (the JAX package's XLA path uses libm atan2;
 which one the port should settle on is an open ROADMAP item).
 
 The two LINEAR stages (DC tracker, de-emphasis) run after the front as
-blocked first-order scans (``linear_tail``).
+blocked first-order scans: ``kernels/iir.linear_tail`` is their plain
+version, ``cuda/first_order.linear_tail`` the one launch of the CUDA
+kernel ``csrc/first_order_scan.cu`` that runs them on the card.
 """
 
 from __future__ import annotations
@@ -32,7 +34,6 @@ import numpy as np
 import torch
 
 from . import agc as kagc
-from . import iir as kiir
 from . import lanes
 from .agc import AgcParams, AgcState
 from .ampmodem import DC_RHO, PLL_BW
@@ -151,17 +152,3 @@ def am_backend_exact(p: AmBackendParams, st: AmBackendState, x):
     return lanes.exact_scan(lambda s, xr, xi: sample_step(p, s, xr, xi),
                             st, x)
 
-
-def linear_tail(p: AmBackendParams, dc0, de0, vr):
-    """DC tracker + de-emphasis over vr (N,) as blocked first-order scans
-    with a double-float carry (``kernels/iir.first_order_apply_blocked``),
-    as the JAX package's XLA back end runs them. The JAX Pallas back end
-    uses the plain f32 associative scan here instead, which floors at
-    ~86.5 dB for the rho = 0.9995 DC tracker; the blocked scan keeps the
-    chain above its 100 dB pin. Returns ((dc_last, de_last), pcm)."""
-    dc_last, dc_track = kiir.first_order_apply_blocked(
-        1.0 - p.dc_rho, p.dc_rho, dc0, vr)
-    audio = (vr - dc_track * p.use_dc) * p.inv_mod
-    de_last, pcm = kiir.first_order_apply_blocked(
-        p.deemph_b0, p.deemph_a, de0, audio)
-    return (dc_last, de_last), pcm

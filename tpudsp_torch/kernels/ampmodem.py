@@ -10,7 +10,9 @@ suppressed, modulation index ``mod``):
                   xi cos - xr sin)
       m_raw = Re(v) (dsb) | the c2r sideband split of v (usb/lsb)
       y = (m_raw - DC) / mod, DC tracked by a one-pole (rho = DC_RHO) run
-                  as the blocked double-float scan (kernels/iir)
+                  as the blocked double-float scan: the CUDA kernel
+                  csrc/first_order_scan.cu on the card (cuda/first_order),
+                  kernels/iir on the CPU
   carrier suppressed:
       dsb: y = Re(x) / mod;  usb/lsb: the c2r split of x, / mod
 
@@ -25,8 +27,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..cuda import pll_scan
-from . import hilbert, iir, lanes, pll
+from ..cuda import first_order, pll_scan
+from . import hilbert, lanes, pll
 
 PLL_BW = 0.001       # carrier-recovery loop bandwidth (rad/sample units)
 DC_RHO = 0.9995      # DC-tracking one-pole coefficient
@@ -69,8 +71,8 @@ def ampdemod_apply(state: AmpDemodState, x, h_hilb, mod_index, am_type: str,
                                                 torch.complex(vr, vi))
         m_raw = upper if am_type == "usb" else lower
     if carrier:
-        dc, dc_track = iir.first_order_apply_blocked(1.0 - DC_RHO, DC_RHO,
-                                                     dc, m_raw)
+        dc, dc_track = first_order.first_order_apply_blocked(
+            1.0 - DC_RHO, DC_RHO, dc, m_raw)
         y = (m_raw - dc_track) * inv_mod
     else:
         y = m_raw * inv_mod

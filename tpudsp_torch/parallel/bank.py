@@ -27,6 +27,7 @@ import torch
 import torch.distributed as dist
 
 from ..cuda import am_backend_scan as scan
+from ..cuda import first_order
 from ..kernels import iir as kiir
 from ..kernels.ampmodem import DC_RHO
 from ..kernels.warmup import chunk_for
@@ -56,8 +57,9 @@ def _first_order_time_sharded_blocked(b0: float, a: float, y0, x_local, mesh):
     """Cross-rank first-order scan y[n] = b0 x[n] + a y[n-1] for
     near-unit poles:
 
-      1. zero-entry blocked local scan per row (kernels/iir.
-         first_order_apply_blocked);
+      1. zero-entry blocked local scan of all C rows
+         (cuda/first_order.first_order_apply_blocked: one launch of
+         csrc/first_order_scan.cu on the card);
       2. the ranks' transition aggregates (a^n_loc from float64 host math,
          u_total = the zero-entry scan's last sample) combined in (hi, lo)
          double-float: one all_gather, then an exclusive prefix over the
@@ -69,9 +71,8 @@ def _first_order_time_sharded_blocked(b0: float, a: float, y0, x_local, mesh):
     b0 = float(b0)
     a = float(a)
     C, n_loc = x_local.shape
-    zero = torch.zeros((), dtype=torch.float32, device=x_local.device)
-    y_zero = torch.stack([kiir.first_order_apply_blocked(b0, a, zero, row)[1]
-                          for row in x_local])
+    zero = torch.zeros((C,), dtype=torch.float32, device=x_local.device)
+    _, y_zero = first_order.first_order_apply_blocked(b0, a, zero, x_local)
     u_all = all_gather(y_zero[:, -1], mesh)                # (T, C)
     aS = tuple(torch.full((), v, dtype=torch.float32, device=x_local.device)
                for v in kiir._split64(np.float64(a) ** n_loc))
