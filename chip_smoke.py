@@ -1028,11 +1028,16 @@ def profile_block(rx, blocks):
 
 
 def profile_am_block():
-    """profile_block over AMReceiver(AMConfig()) on 4M-sample c64 blocks."""
+    """AMReceiver(AMConfig()) on 4M-sample c64 blocks: the host-clock
+    median of 5 with its spread, the CUDA-event median of 5, and
+    profile_block's window."""
     import torch
     from tpudsp_torch.chains.am import AMConfig, AMReceiver
-    blocks = [torch.from_numpy(b).to(DEV) for b in wire_blocks(2, BLOCK_4M, seed=3)["c64"]]
-    return profile_block(AMReceiver(AMConfig(), BLOCK_4M, device=DEV), blocks)
+    blocks = [torch.from_numpy(b).to(DEV) for b in wire_blocks(6, BLOCK_4M, seed=3)["c64"]]
+    rx = AMReceiver(AMConfig(), BLOCK_4M, device=DEV)
+    med, spread = _block_times(rx, blocks)
+    return {"host_ms": med * 1e3, "host_spread": spread,
+            "cuda_event_ms": _block_device_ms(rx, blocks), **profile_block(rx, blocks)}
 
 
 def _conv1d_call(x, tail, Tre, Tim, D1, nj):
@@ -1126,15 +1131,16 @@ def phase_timing():
             f"of 5 (spread {spread * 100:.1f}%), {BLOCK_4M / med / 1e6:.1f} Msamp/s; "
             f"CUDA events median {dev_ms:.3f} ms of 5")
     prof = profile_am_block()
-    log(f"timing: profiler, one AMReceiver c64 4M-sample block: {json.dumps(prof)}")
+    log(f"timing: profiler and block times, AMReceiver c64 4M-sample block: "
+        f"{json.dumps(prof)}")
     if PARENT:
-        # the same window with the parent's package, in a process of its own
+        # the same with the parent's package, in a process of its own
         res = subprocess.run([sys.executable, str(Path(__file__).resolve()),
                               "--profile-root", str(PARENT)],
                              capture_output=True, text=True, timeout=600)
         line = res.stdout.strip().splitlines()[-1:] if res.returncode == 0 else []
-        log(f"timing: profiler, the parent's AMReceiver c64 4M-sample block: "
-            f"{line[0] if line else 'failed: ' + res.stderr[-2000:]}")
+        log(f"timing: profiler and block times, the parent's AMReceiver c64 4M-sample "
+            f"block: {line[0] if line else 'failed: ' + res.stderr[-2000:]}")
     blocks = [torch.from_numpy(b).to(DEV) for b in data["c64"]]
     for halo in ("ppermute", "async"):
         rx = ShardedAMReceiver(AMConfig(), make_mesh(1, 1, DEV), BLOCK_4M, halo=halo,
@@ -1263,8 +1269,8 @@ def main() -> int:
         print("chip_smoke.py: no CUDA device", file=sys.stderr)
         return 1
     if args.profile_root:
-        # one profiler window over an AM block with the package under the
-        # given root, for --parent's launch count; prints one JSON line
+        # an AM block's times and one profiler window with the package
+        # under the given root, for --parent; prints one JSON line
         sys.path.insert(0, str(args.profile_root.resolve()))
         print(json.dumps(profile_am_block()))
         return 0

@@ -2,7 +2,7 @@
 // double-float carry, and the AM receiver's linear tail built from two of
 // them, for NVIDIA Hopper (sm_90a).
 //
-// The JAX package has no Pallas kernel here: tpudsp/kernels/iir.py
+// The JAX package has no Pallas kernel here: tpudsp/kernels/iir.py:283
 // first_order_apply_blocked runs the within-block prefix as one einsum and
 // carries the block entry values through a sequential lax.scan. On the card
 // it is this kernel, one launch per call, never a Python loop of launches.
