@@ -6,8 +6,9 @@
 Run from the root of a checkout, on a machine with a CUDA device and the
 CUDA toolkit. ``--parent DIR`` names a checkout of an earlier commit (its
 files unpacked, e.g. by ``git archive``): the run then also holds pll_scan
-bit for bit against DIR's kernel, built from DIR's source, and counts the
-launches of one AM block with DIR's package in a second process. Phases,
+bit for bit against DIR's kernel, built from DIR's source, and times one
+AM block and counts its launches with DIR's package in a second process
+(``--profile-root DIR`` alone prints that report and exits). Phases,
 each of which fails the run (exit code 1, no final result line) if it
 fails:
 
@@ -1258,7 +1259,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description="Drive tpudsp_torch on one CUDA device.")
     ap.add_argument("--parent", type=Path, help="a checkout of an earlier commit to hold "
                     "pll_scan's bits and the AM block's launches against")
-    ap.add_argument("--profile-root", type=Path, help=argparse.SUPPRESS)
+    ap.add_argument("--profile-root", type=Path, help="print one AM block's times and "
+                    "profiler window with the package under this checkout, and exit")
     args = ap.parse_args()
     if not (ROOT / "tpudsp_torch" / "csrc").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository "
