@@ -6,9 +6,10 @@
 Run from the root of a checkout, on a machine with a CUDA device and the
 CUDA toolkit. ``--parent DIR`` names a checkout of an earlier commit (its
 files unpacked, e.g. by ``git archive``): the run then also holds pll_scan
-bit for bit against DIR's kernel, built from DIR's source, and times one
-AM block and counts its launches with DIR's package in a second process
-(``--profile-root DIR`` alone prints that report and exits). Phases,
+bit for bit against DIR's kernel, built from DIR's source, and, in a second
+process with DIR's package, times one AM block, counts its launches and
+times first_order_scan's and halo_async's calls (``--profile-root DIR``
+alone prints that report and exits). Phases,
 each of which fails the run (exit code 1, no final result line) if it
 fails:
 
@@ -45,14 +46,17 @@ fails:
               first_order_scan: one recurrence with the DC tracker's and
                 the de-emphasis's coefficients at 96,000 samples, ragged
                 lengths 12,345, 7 and 32, 3 rows with distinct carries,
-                two chained calls, and linear_tail_scan (the AM
-                receiver's whole tail) at 96,000 samples with and without
-                DC tracking;
+                two chained calls, the carry scan's tile edges (8191, 8192,
+                8193 and 16389 samples, also 3 rows), and linear_tail_scan
+                (the AM receiver's whole tail) at 96,000 samples with and
+                without DC tracking and at 16389;
               halo_async: the async-halo front end on a 1x1 mesh at the AM
                 shape (a 4M-sample c64 shard, the AM design's 3 phases of
-                24 x 125 offset-folded real taps) and at the bank shape (16
-                channels of 128 taps decimating by 10, 4M samples of c64,
-                int16 and uint8), each with a random carried tail.
+                24 x 125 offset-folded real taps, also with an nj that 8
+                does not divide) and at the bank shape (16 channels of 128
+                taps decimating by 10, 4M samples of c64, int16 and uint8,
+                and a 1970-sample uint8 shard whose two launches are each
+                shorter than a tile), each with a random carried tail.
               am_front_scan, agc_scan and first_order_scan must equal
               their plain versions bit for bit (outputs, modes and final
               states); pll_scan must reach 90 dB SNR with close final
@@ -87,8 +91,11 @@ fails:
               and the device's busy share), and each kernel's time against
               its plain version's at its main shape, with the scans' ns per
               dependent step, the two staged kernels' launches alone and
-              the sharded receiver's entry scan (and halo_async's against
-              one torch.nn.functional.conv1d call, TF32 off).
+              the sharded receiver's entry scan; first_order_scan's and
+              halo_async's wrapper calls at their shapes and halo_async's
+              launches alone (also for --parent's package), and
+              halo_async's against one torch.nn.functional.conv1d call,
+              TF32 off.
 
 Phases 3-6 also count first_order_scan's launches on their path: one per
 AMReceiver block, two per ShardedAMReceiver block (the DC tracker's rows
@@ -139,6 +146,7 @@ OPS_AGC, OPS_PLL = 25, 20
 # f32 operations per sample of one blocked first-order recurrence: the
 # within-block sum's 32 multiplies and 32 adds
 OPS_FIRST_ORDER = 64
+TILE_FO = 256 * 32          # samples of one tile of first_order_scan's carry scan
 DC_RHO = 0.9995             # the AM receiver's DC tracker pole
 PARENT: Path | None = None  # --parent: a checkout of an earlier commit
 
@@ -372,10 +380,11 @@ def halo_am_case(seed: int):
             params.taps_fused, None, 125, N_OUT_4M // 3)
 
 
-def halo_bank_case(fmt: str, seed: int):
+def halo_bank_case(fmt: str, seed: int, n_samples: int = BLOCK_4M):
     """halo_async's inputs at the bank shape: 16 channels of 128 random
-    complex taps decimating by 10 (the wire scale folded in), 4M samples
-    and a 127-sample carried tail of c64 or raw (n, 2) int16 / uint8."""
+    complex taps decimating by 10 (the wire scale folded in), n_samples
+    (4M) samples and a 127-sample carried tail of c64 or raw (n, 2) int16
+    / uint8."""
     import torch
     from tpudsp_torch.kernels import decimate as kdec
     C, K1, D1 = 16, 128, 10
@@ -384,7 +393,7 @@ def halo_bank_case(fmt: str, seed: int):
     taps = (rng.standard_normal((C, K1)) + 1j * rng.standard_normal((C, K1))) * scale
     Tre, Tim = (torch.from_numpy(kdec.plan_phase_taps(t.astype(np.float32), D1)).to(DEV)
                 for t in (taps.real, taps.imag))
-    n = BLOCK_4M + K1 - 1
+    n = n_samples + K1 - 1
     z = (rng.standard_normal(n) + 1j * rng.standard_normal(n)) * 0.2
     if fmt == "i16":
         w = np.clip(np.round(np.stack([z.real, z.imag], 1) * 32767), -32767, 32767).astype(np.int16)
@@ -393,7 +402,7 @@ def halo_bank_case(fmt: str, seed: int):
     else:
         w = z.astype(np.complex64)
     w = torch.from_numpy(w).to(DEV)
-    return w[K1 - 1:].contiguous(), w[:K1 - 1].contiguous(), Tre, Tim, D1, BLOCK_4M // D1
+    return w[K1 - 1:].contiguous(), w[:K1 - 1].contiguous(), Tre, Tim, D1, n_samples // D1
 
 
 def _compare_halo(name, case, snr_bar=110.0):
@@ -686,6 +695,11 @@ def linear_tail_f64(p, dc0: float, de0: float, vr):
     return sig.lfilter([p.deemph_b0], [1.0, -p.deemph_a], audio, zi=[p.deemph_a * de0])[0]
 
 
+def _flat(tail_out):
+    """linear_tail's ((dc_last, de_last), pcm) as (pcm, dc_last, de_last)."""
+    return (tail_out[1], *tail_out[0])
+
+
 def kernel_first_order():
     """first_order_scan's cases, each bit for bit against its plain version
     (kernels/iir) on the same card."""
@@ -705,6 +719,14 @@ def kernel_first_order():
         ("de-emphasis n=32", de, y0(0.3), first_order_inputs(32, seed=4)),
         ("DC tracker C=3 rows distinct carries n=12345", dc,
          torch.tensor([0.0, 0.5, -1.0], device=DEV), first_order_inputs(12_345, 3, seed=5)),
+        # the carry scan's tile edges (a tile is 256 blocks of 32 samples)
+        *((f"{w} n={n}", c, y0(0.4), first_order_inputs(n, seed=10 + k))
+          for k, (n, w, c) in enumerate(((TILE_FO - 1, "DC tracker", dc), (TILE_FO, "de-emphasis", de),
+                                         (TILE_FO + 1, "DC tracker", dc),
+                                         (2 * TILE_FO + 5, "de-emphasis", de)))),
+        (f"DC tracker C=3 rows distinct carries n={2 * TILE_FO + 5}", dc,
+         torch.tensor([0.0, 0.5, -1.0], device=DEV),
+         first_order_inputs(2 * TILE_FO + 5, 3, seed=15)),
     ]
     for name, (b0, a), yp, xin in cases:
         _compare_exact(f"first_order_scan {name}",
@@ -717,13 +739,19 @@ def kernel_first_order():
     r1 = kiir.first_order_apply_blocked(*dc, y0(0.2), x2[:12_345])
     r2 = kiir.first_order_apply_blocked(*dc, r1[0], x2[12_345:])
     _compare_exact("first_order_scan DC tracker two chained calls n=12345", k1 + k2, r1 + r2)
+    # linear_tail_scan at a tile edge
+    xe = first_order_inputs(2 * TILE_FO + 5, seed=16)
+    pe = tail_params(True)
+    _compare_exact(f"linear_tail_scan n={2 * TILE_FO + 5} use_dc 1",
+                   _flat(fo.linear_tail(pe, y0(0.3), y0(-0.1), xe)),
+                   _flat(kiir.linear_tail(pe, y0(0.3), y0(-0.1), xe)))
     # linear_tail_scan at the AM shape, with and without DC tracking
     for carrier in (True, False):
         p = tail_params(carrier)
         k = fo.linear_tail(p, y0(0.3), y0(-0.1), x96)
         ref, plain_ms = timed(lambda: kiir.linear_tail(p, y0(0.3), y0(-0.1), x96))
         err = _compare_exact(f"linear_tail_scan n=96000 use_dc {int(carrier)}",
-                             (k[1], *k[0]), (ref[1], *ref[0]))
+                             _flat(k), _flat(ref))
         # the tail's own accuracy, against float64 recurrences
         s = snr_db(linear_tail_f64(p, 0.3, -0.1, x96), k[1].cpu().numpy())
         log(f"kernel[linear_tail_scan n=96000 use_dc {int(carrier)}]: vs float64 {s:.2f} dB "
@@ -732,7 +760,6 @@ def kernel_first_order():
             raise AssertionError("linear_tail_scan is less accurate than its bar")
         if carrier:
             _record("first_order_scan", err, plain_ms)
-    results["inputs"]["x96_tail"] = x96
 
 
 def phase_kernel():
@@ -747,6 +774,14 @@ def phase_kernel():
     for k, fmt in enumerate(("c64", "i16", "u8")):
         _compare_halo(f"halo_async bank shape C=16 Kc=13 D1=10 4M {fmt}",
                       halo_bank_case(fmt, 8 + k))
+    # tile edges (8 outputs a thread; 128 outputs a block at the AM shape,
+    # 256 at the bank shape): an nj that 8 does not divide, and a shard
+    # whose boundary (13 outputs) and interior (184) launches are each
+    # shorter than one tile
+    x, tail, Tre, Tim, D1, nj = halo_am_case(11)
+    _compare_halo(f"halo_async AM shape nj={nj - 3}", (x, tail, Tre, Tim, D1, nj - 3))
+    _compare_halo("halo_async bank shape short shard n=1970 nj=197 u8",
+                  halo_bank_case("u8", 12, 1970))
 
 
 def phase_chain():
@@ -1041,6 +1076,41 @@ def profile_am_block():
             "cuda_event_ms": _block_device_ms(rx, blocks), **profile_block(rx, blocks)}
 
 
+def kernel_call_times():
+    """CUDA-event times (ms) of first_order_scan and halo_async, with
+    whatever tpudsp_torch is imported (this tree's, or --profile-root's):
+    first_order_scan by the wrapper's call (linear_tail at n = 96000, one
+    recurrence at n = 96000 and at the AMRadio callback's 6291), and
+    halo_async at the AM and bank shapes by the wrapper's call and by its
+    two launches alone (taps packed and output allocated beforehand). Uses
+    only entry points that the package has had since halo_async's port."""
+    import torch
+    from tpudsp_torch.cuda import first_order, halo_async
+    from tpudsp_torch.parallel import make_mesh
+    vr = first_order_inputs(N_OUT_4M, seed=1)
+    tp = tail_params(True)
+    y0 = torch.zeros((), device=DEV)
+    out = {f"linear_tail n={N_OUT_4M}": _cuda_ms(lambda: first_order.linear_tail(tp, y0, y0, vr), 20)}
+    for n in (N_OUT_4M, N_CALLBACK_OUT):
+        out[f"first_order n={n}"] = _cuda_ms(lambda: first_order.first_order_apply_blocked(
+            1.0 - DC_RHO, DC_RHO, y0, vr[:n]), 20)
+    mesh = make_mesh(1, 1, DEV)
+    for label, case in (("AM shape c64", halo_am_case(7)),
+                        ("bank shape c64", halo_bank_case("c64", 8))):
+        x, tail, Tre, Tim, D1, nj = case
+        taps = halo_async.pack_taps(Tre, Tim)
+        y = torch.empty((Tre.shape[0], nj), dtype=torch.complex64, device=DEV)
+        S = halo_async.boundary(tail.shape[0], D1, nj)
+
+        def launches():
+            halo_async._launch(x, tail, taps, y, D1, S, nj)
+            halo_async._launch(x, tail, taps, y, D1, 0, S)
+        out[f"halo_async {label} call"] = _cuda_ms(
+            lambda: halo_async.bank_front_async(*case, mesh), 20)
+        out[f"halo_async {label} launches"] = _cuda_ms(launches, 20)
+    return out
+
+
 def _conv1d_call(x, tail, Tre, Tim, D1, nj):
     """The library call for halo_async's function: one strided
     torch.nn.functional.conv1d over the (re, im) planes of [tail | x |
@@ -1073,21 +1143,19 @@ def _conv1d_call(x, tail, Tre, Tim, D1, nj):
             lambda y: torch.complex(y[0, 0::2], y[0, 1::2]))
 
 
-def time_halo_async():
-    """halo_async's kernel time at the AM shape, its bound and the conv1d
-    library call's time (TF32 off); the bank shape's kernel and conv1d
-    times are logged."""
+def time_halo_async(calls):
+    """halo_async's bound and the conv1d library call's time (TF32 off) at
+    the AM shape, and conv1d at the bank shape, beside the kernel's times
+    in ``calls`` (kernel_call_times)."""
     import torch
     from tpudsp_torch.cuda import halo_async
     from tpudsp_torch.parallel import make_mesh
     mesh = make_mesh(1, 1, DEV)
     torch.backends.cudnn.allow_tf32 = False
-    cases = [("AM shape c64", halo_am_case(7))] + [
-        (f"bank shape {fmt}", halo_bank_case(fmt, 8 + k)) for k, fmt in enumerate(("c64", "i16", "u8"))]
+    cases = [("AM shape c64", halo_am_case(7)), ("bank shape c64", halo_bank_case("c64", 8))]
     k = results["kernels"]["halo_async"]
     for label, case in cases:
         x, tail, Tre, Tim, D1, nj = case
-        kernel_ms = _cuda_ms(lambda: halo_async.bank_front_async(*case, mesh), 20)
         conv, to_complex = _conv1d_call(*case)
         y_conv = to_complex(conv())
         Y = halo_async.bank_front_async(*case, mesh)
@@ -1100,11 +1168,13 @@ def time_halo_async():
         per_tap = 4 if Tim is None else 8
         nbytes = (x.numel() + tail.numel()) * x.element_size() + win * C * per_tap // 2 + nj * C * 8
         ops = float(per_tap) * C * win * nj
-        log(f"timing: halo_async {label}: kernel {kernel_ms:.4f} ms, conv1d {library_ms:.4f} ms "
+        call_ms = calls[f"halo_async {label} call"]
+        log(f"timing: halo_async {label}: wrapper call {call_ms:.4f} ms, its two launches "
+            f"alone {calls[f'halo_async {label} launches']:.4f} ms, conv1d {library_ms:.4f} ms "
             f"(agrees with the kernel to {s:.1f} dB), bound max({nbytes / HBM_BPS * 1e3:.4f}, "
             f"{ops / F32_FLOPS * 1e3:.4f}) ms")
         if label.startswith("AM"):
-            k.update(ms=kernel_ms, library_ms=library_ms)
+            k.update(ms=call_ms, library_ms=library_ms)
             bound("halo_async", nbytes, ops)
 
 
@@ -1134,6 +1204,8 @@ def phase_timing():
     prof = profile_am_block()
     log(f"timing: profiler and block times, AMReceiver c64 4M-sample block: "
         f"{json.dumps(prof)}")
+    calls = kernel_call_times()
+    log(f"timing: first_order_scan and halo_async times: {json.dumps(calls)}")
     if PARENT:
         # the same with the parent's package, in a process of its own
         res = subprocess.run([sys.executable, str(Path(__file__).resolve()),
@@ -1141,7 +1213,10 @@ def phase_timing():
                              capture_output=True, text=True, timeout=600)
         line = res.stdout.strip().splitlines()[-1:] if res.returncode == 0 else []
         log(f"timing: profiler and block times, the parent's AMReceiver c64 4M-sample "
-            f"block: {line[0] if line else 'failed: ' + res.stderr[-2000:]}")
+            f"block, and its first_order_scan and halo_async times: "
+            f"{line[0] if line else 'failed: ' + res.stderr[-2000:]}")
+        if not line:
+            raise AssertionError("the parent's timing process failed")
     blocks = [torch.from_numpy(b).to(DEV) for b in data["c64"]]
     for halo in ("ppermute", "async"):
         rx = ShardedAMReceiver(AMConfig(), make_mesh(1, 1, DEV), BLOCK_4M, halo=halo,
@@ -1196,16 +1271,12 @@ def phase_timing():
     bound("pll_scan", N_CALLBACK_OUT * (8 + 4), N_CALLBACK_OUT * OPS_PLL)
     pll96 = _cuda_ms(lambda: pll_scan.pll_carrier_scan(pst, x, 0.001), 5)
     # first_order_scan: the AM receiver's tail, one linear_tail_scan launch
-    # at its shape; its steps are the carry's 2 x 3000 dependent
-    # double-float steps
-    vr = results["inputs"]["x96_tail"]
-    tp = tail_params(True)
-    y0 = torch.zeros((), device=DEV)
-    k["first_order_scan"]["ms"] = _cuda_ms(lambda: first_order.linear_tail(tp, y0, y0, vr), 20)
+    # at its shape; its steps are 2 x 3000 blocks (the sequential carry's
+    # dependent double-float steps, now a scan per tile)
+    k["first_order_scan"]["ms"] = calls[f"linear_tail n={N_OUT_4M}"]
     k["first_order_scan"]["steps_per_lane"] = 2 * (-(-N_OUT_4M // 32))
     bound("first_order_scan", N_OUT_4M * (4 + 4), N_OUT_4M * 2 * OPS_FIRST_ORDER)
-    one = {n: _cuda_ms(lambda: first_order.first_order_apply_blocked(
-        1.0 - DC_RHO, DC_RHO, y0, vr[:n]), 20) for n in (N_OUT_4M, N_CALLBACK_OUT)}
+    one = {n: calls[f"first_order n={n}"] for n in (N_OUT_4M, N_CALLBACK_OUT)}
     # the two staged kernels' launches alone, on planes made beforehand: the
     # rest of a wrapper call is its plain PyTorch copies (planes, outputs,
     # the ragged tail's fix)
@@ -1215,7 +1286,7 @@ def phase_timing():
                                WARMUP + CHUNK),
              "agc_scan": (_cuda_ms(lambda: agc_scan._launch(ap, ast, are, aim, an, AGC_WARMUP),
                                    10), AGC_WARMUP + AGC_CHUNK)}
-    time_halo_async()
+    time_halo_async(calls)
     # timing launches are not a path's
     (scan._launch.launches, agc_scan._launch.launches, pll_scan._launch.launches,
      halo_async._launch.launches, first_order._launch.launches) = counts
@@ -1231,8 +1302,8 @@ def phase_timing():
     log(f"timing: am_front_scan entry scan (exact, L={WARMUP}): kernel {entry_ms:.4f} ms, "
         f"ns/step {entry_ms * 1e6 / WARMUP:.1f}")
     for n, ms in one.items():
-        log(f"timing: first_order_scan one recurrence (DC tracker) n={n}: kernel {ms:.4f} ms, "
-            f"ns per carry step {ms * 1e6 / -(-n // 32):.1f}")
+        log(f"timing: first_order_scan one recurrence (DC tracker) n={n}: wrapper call "
+            f"{ms:.4f} ms, ns per block {ms * 1e6 / -(-n // 32):.1f}")
     for name, (ms, steps) in alone.items():
         log(f"timing: {name} launch alone at its main shape: {ms:.4f} ms, "
             f"ns/step {ms * 1e6 / steps:.1f} (the wrapper's call: {k[name]['ms']:.4f} ms)")
@@ -1258,9 +1329,11 @@ def main() -> int:
     global PARENT
     ap = argparse.ArgumentParser(description="Drive tpudsp_torch on one CUDA device.")
     ap.add_argument("--parent", type=Path, help="a checkout of an earlier commit to hold "
-                    "pll_scan's bits and the AM block's launches against")
+                    "pll_scan's bits, the AM block's launches and times, and "
+                    "first_order_scan's and halo_async's times against")
     ap.add_argument("--profile-root", type=Path, help="print one AM block's times and "
-                    "profiler window with the package under this checkout, and exit")
+                    "profiler window, and first_order_scan's and halo_async's call times, "
+                    "with the package under this checkout, and exit")
     args = ap.parse_args()
     if not (ROOT / "tpudsp_torch" / "csrc").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository "
@@ -1274,7 +1347,7 @@ def main() -> int:
         # an AM block's times and one profiler window with the package
         # under the given root, for --parent; prints one JSON line
         sys.path.insert(0, str(args.profile_root.resolve()))
-        print(json.dumps(profile_am_block()))
+        print(json.dumps({**profile_am_block(), "calls": kernel_call_times()}))
         return 0
     PARENT = args.parent.resolve() if args.parent else None
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

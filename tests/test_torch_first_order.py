@@ -3,10 +3,11 @@ csrc/first_order_scan.cu in kernels/iir, and their wrapper
 cuda/first_order on CPU tensors) against tpudsp's blocked scan:
 
 - C rows in one call against one tpudsp call per row;
-- the sequential double-float carry alone against the float64 recurrence;
+- the tiled log-depth double-float carry alone against the float64
+  recurrence and against the sequential carry in the JAX package's order;
 - the AM receiver's linear tail against the composition of tpudsp's XLA
   back end (two blocked scans with the audio line between them);
-- lengths at and around one block of L = 32;
+- lengths at and around one block of L = 32 and one tile of 256 blocks;
 - the wrapper on CPU tensors: the plain version's bits, no launch; its
   launch refuses tensors that are not on a CUDA device.
 """
@@ -63,18 +64,41 @@ def test_rows_match_tpudsp_per_row(which):
             assert float(ty_prev[c]) == float(ty[c, -1])
 
 
-@pytest.mark.parametrize("which", sorted(COEFFS))
-def test_carry_matches_float64(which):
-    """The sequential carry alone, E[b+1] = a^L E[b] + S[b] over 3000
-    blocks (the AM shape's) from distinct entries: (hi, lo) within 2^-44
-    relative of the float64 recurrence."""
+def _powers(a):
+    """The block powers a^(L m), m = 0..TILE_BLOCKS, of the host table as
+    (hi, lo) tensors."""
+    pairs = torch.from_numpy(tiir.block_table(0.0, a)[32 * 33:].reshape(-1, 2))
+    return pairs[:, 0], pairs[:, 1]
+
+
+def _carry_sequential(aL, y_prev, S):
+    """The JAX package's order of the block carry (its lax.scan body),
+    one block after the other: E[0] = (y_prev, 0), E[b+1] = a^L E[b] +
+    (S[b], 0)."""
+    ch, cl = y_prev, torch.zeros_like(y_prev)
+    EH, EL = torch.empty_like(S), torch.empty_like(S)
+    for b in range(S.shape[1]):
+        EH[:, b], EL[:, b] = ch, cl
+        ch, cl = tiir._df_add(tiir._df_mul(aL, (ch, cl)), (S[:, b], torch.zeros_like(ch)))
+    return EH, EL
+
+
+def _carry_case(which):
     _, a = COEFFS[which]
     rng = np.random.default_rng(3)
     S = rng.standard_normal((2, 3000)).astype(np.float32)
     y0 = rng.standard_normal(2).astype(np.float32)
+    return a, S, y0
+
+
+@pytest.mark.parametrize("which", sorted(COEFFS))
+def test_carry_matches_float64(which):
+    """The tiled log-depth carry alone, E[b+1] = a^L E[b] + S[b] over 3000
+    blocks (the AM shape's, 12 tiles of 256) from distinct entries: (hi,
+    lo) within 2^-44 relative of the float64 recurrence."""
+    a, S, y0 = _carry_case(which)
+    EH, EL = tiir._carry(_powers(a), torch.from_numpy(y0), torch.from_numpy(S))
     c = np.float64(a) ** 32
-    aL = tuple(torch.tensor(v, dtype=torch.float32) for v in tiir._split64(c))
-    EH, EL = tiir._carry(aL, torch.from_numpy(y0), torch.from_numpy(S))
     ref = np.empty(S.shape)
     e = y0.astype(np.float64)
     for b in range(S.shape[1]):
@@ -82,6 +106,20 @@ def test_carry_matches_float64(which):
         e = c * e + S[:, b]
     got = EH.double().numpy() + EL.double().numpy()
     assert np.max(np.abs(got - ref)) <= 2.0 ** -44 * np.max(np.abs(ref))
+
+
+@pytest.mark.parametrize("which", sorted(COEFFS))
+def test_carry_matches_sequential_order(which):
+    """The tiled log-depth carry against the sequential carry in the JAX
+    package's order, over 3000 blocks from distinct entries: the two
+    orders part by at most 2^-44 relative."""
+    a, S, y0 = _carry_case(which)
+    EH, EL = tiir._carry(_powers(a), torch.from_numpy(y0), torch.from_numpy(S))
+    aL = tuple(torch.tensor(v, dtype=torch.float32) for v in tiir._split64(np.float64(a) ** 32))
+    SH, SL = _carry_sequential(aL, torch.from_numpy(y0), torch.from_numpy(S))
+    got = EH.double().numpy() + EL.double().numpy()
+    seq = SH.double().numpy() + SL.double().numpy()
+    assert np.max(np.abs(got - seq)) <= 2.0 ** -44 * np.max(np.abs(seq))
 
 
 def _tail_params(carrier):
@@ -144,18 +182,55 @@ def test_block_edge_lengths_match_tpudsp(n):
 
 def test_block_table_values():
     """The host table: T = b0 a^(i-j) on and below the diagonal, zeros
-    above, a^(i+1), and a^L's (hi, lo) split summing to float64 a^L."""
+    above, a^(i+1), and each block power's (hi, lo) split summing to
+    float64 a^(L m), m = 0..256, within 2^-46 relative (and half of f32's
+    least subnormal, where the de-emphasis's powers leave its range)."""
     b0, a = COEFFS["deemphasis"]
     tab_ = tiir.block_table(b0, a)
-    assert tab_.dtype == np.float32 and tab_.shape == (32 * 32 + 32 + 2,)
+    assert tab_.dtype == np.float32 and tab_.shape == (tiir.TABLE_SIZE,)
+    assert tiir.TABLE_SIZE == 32 * 32 + 32 + 2 * 257
     T = tab_[:1024].reshape(32, 32).astype(np.float64)
     i = np.arange(32)
     np.testing.assert_allclose(np.diag(T), b0, rtol=1e-7)
     np.testing.assert_allclose(T[5, 2], b0 * a ** 3, rtol=1e-7)
     assert np.all(T[np.triu_indices(32, 1)] == 0.0)
     np.testing.assert_allclose(tab_[1024:1056], a ** (i + 1.0), rtol=1e-7)
-    hi, lo = tab_[-2:].astype(np.float64)
-    assert abs(hi + lo - np.float64(a) ** 32) <= 2.0 ** -46 * a ** 32
+    for pole in (a, DC_RHO):
+        hi, lo = tiir.block_table(b0, pole)[1056:].astype(np.float64).reshape(-1, 2).T
+        want = np.float64(pole) ** (32.0 * np.arange(257))
+        assert hi[0] == 1.0 and lo[0] == 0.0
+        assert np.all(np.abs(hi + lo - want) <= 2.0 ** -46 * want + 2.0 ** -150)
+
+
+TILE = 256 * 32   # samples of one tile of the carry scan
+
+
+@pytest.mark.parametrize("n", [TILE - 1, TILE, TILE + 1, 2 * TILE + 5])
+def test_tile_edge_lengths_match_tpudsp(n):
+    """Lengths at the carry scan's tile edges, 3 rows with distinct
+    carries over two chained calls: each row >= 120 dB against its own
+    tpudsp call and >= 130 dB against the float64 serial recurrence;
+    y_last the last output."""
+    b0, a = COEFFS["dc_tracker"]
+    x = _signal((3, 2 * n), seed=7)
+    x[1] *= -2.0
+    carries = np.array([0.0, 0.5, -1.0], np.float32)
+    ty_prev = torch.from_numpy(carries)
+    jy_prev = [jnp.float32(v) for v in carries]
+    e = carries.astype(np.float64)
+    for k in range(2):
+        xs = x[:, k * n:(k + 1) * n]
+        ty_prev, ty = tiir.first_order_apply_blocked(b0, a, ty_prev, torch.from_numpy(xs))
+        ref = np.empty(xs.shape)
+        for m in range(n):
+            e = a * e + b0 * xs[:, m].astype(np.float64)
+            ref[:, m] = e
+        for c in range(3):
+            jy_prev[c], jy = jiir.first_order_apply_blocked(b0, a, jy_prev[c],
+                                                            jnp.asarray(xs[c]))
+            assert snr_db(np.asarray(jy), ty[c].numpy()) > 120.0
+            assert snr_db(ref[c], ty[c].numpy()) > 130.0
+            assert float(ty_prev[c]) == float(ty[c, -1])
 
 
 def test_wrappers_take_the_plain_versions_on_cpu():

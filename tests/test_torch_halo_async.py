@@ -170,3 +170,34 @@ def test_boundary_split_and_checks():
         kasync._launch(xc, xc[:K1 - 1], kasync.pack_taps(Tre, Tim),
                        torch.empty((2, 100), dtype=torch.complex64), D1, 0, 100)
     assert kasync._launch.launches == 0
+
+
+def test_pack_taps_is_made_once_per_taps_tensor():
+    """pack_taps' cached result equals a fresh pack, is the same tensor on
+    the next call with the same taps, and is made anew for other taps or
+    after the taps change in place."""
+    Tre, Tim = (torch.from_numpy(t) for t in _taps(3, K1, D1, seed=4))
+    for im in (Tim, None):
+        got = kasync.pack_taps(Tre, im)
+        assert torch.equal(got, kasync._pack(Tre, im))
+        assert kasync.pack_taps(Tre, im) is got
+    other = Tre.clone()
+    assert kasync.pack_taps(other, Tim) is not kasync.pack_taps(Tre, Tim)
+    before = kasync.pack_taps(other, Tim)
+    other.mul_(2.0)
+    after = kasync.pack_taps(other, Tim)
+    assert torch.equal(after, kasync._pack(other, Tim)) and not torch.equal(after, before)
+
+
+@pytest.mark.parametrize("real", [True, False], ids=["real_taps", "complex_taps"])
+def test_kernel_launch_refuses_cpu_tensors(real):
+    """The launch path never falls back to the plain version: CPU tensors,
+    with the cached taps of either kind, are refused and nothing is
+    counted."""
+    Tre, Tim = (torch.from_numpy(t) for t in _taps(2, K1, D1, seed=6))
+    xc = torch.zeros(1000, dtype=torch.complex64)
+    before = kasync._launch.launches
+    with pytest.raises(ValueError, match="runs on CUDA"):
+        kasync._launch(xc, xc[:K1 - 1], kasync.pack_taps(Tre, None if real else Tim),
+                       torch.empty((2, 100), dtype=torch.complex64), D1, 0, 100)
+    assert kasync._launch.launches == before

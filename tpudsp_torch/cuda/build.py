@@ -46,8 +46,8 @@ SIGNATURES = {
         "halo_async": [_P] * 4 + [_I] * 10 + [_P],
     },
     "first_order_scan": {
-        "first_order_scan": [_P] * 5 + [_I] * 2 + [_P],
-        "linear_tail_scan": [_P] * 9 + [_I] * 2 + [_P],
+        "first_order_scan": [_P] * 6 + [_I] * 4 + [_P],
+        "linear_tail_scan": [_P] * 10 + [_I] * 4 + [_P],
     },
 }
 

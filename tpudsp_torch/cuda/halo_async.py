@@ -60,7 +60,7 @@ def boundary(halo_len: int, D1: int, nj: int) -> int:
     return min(-(-halo_len // D1), nj)
 
 
-def pack_taps(Tre, Tim):
+def _pack(Tre, Tim):
     """(C, Kc, D1) blocked taps -> the kernel's (win, C) taps: complex64,
     or float32 when ``Tim`` is None (real taps)."""
     C = Tre.shape[0]
@@ -68,6 +68,12 @@ def pack_taps(Tre, Tim):
         return Tre.reshape(C, -1).float().T.contiguous()
     return torch.complex(Tre.reshape(C, -1).float(),
                          Tim.reshape(C, -1).float()).T.contiguous()
+
+
+def pack_taps(Tre, Tim):
+    """``_pack``, made once per taps tensor (a receiver passes the same
+    taps every block) rather than a device transpose-copy every call."""
+    return launch.memo("pack_taps", (Tre, Tim), lambda: _pack(Tre, Tim))
 
 
 def _launch(x, halo, taps, y, D1: int, j_begin: int, j_end: int):

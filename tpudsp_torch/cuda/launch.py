@@ -18,20 +18,57 @@ def check(kernel: str, name: str, t, dtype, shape, device):
         raise ValueError(f"{kernel}: {name} must be contiguous")
 
 
+# memo's entries: (tag, tensor identities) -> (tensors, versions, value);
+# an entry keeps its tensors alive, so no other tensor takes their
+# identities while it lives
+_memo: dict = {}
+
+
+def memo(tag: str, tensors, make):
+    """``make()``, made once for ``tensors`` (None entries allowed) while
+    none of them is replaced or changed in place: a wrapper's argument
+    derived from parameters that stay the same from call to call, made
+    without a device op every call."""
+    key = (tag, *map(id, tensors))
+    versions = tuple(None if t is None else t._version for t in tensors)
+    hit = _memo.get(key)
+    if hit is None or hit[1] != versions:
+        if len(_memo) >= 64:
+            _memo.clear()
+        hit = _memo[key] = (tuple(tensors), versions, make())
+    return hit[2]
+
+
 def on_cuda(kernel: str, device):
     if device.type != "cuda":
         raise ValueError(f"{kernel} runs on CUDA tensors, got {device}")
 
 
-def launch(kernel: str, device, *args, source: str | None = None):
+# the current stream's raw handle by device index, without the Stream
+# object that torch.cuda.current_stream builds on every call (host time
+# that a small launch feels); the public call where this torch lacks it
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def stream(device) -> int:
+    """The handle of ``device``'s current stream."""
+    if _raw_stream is not None and device.index is not None:
+        return _raw_stream(device.index)
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def launch(kernel: str, device, *args, source: str | None = None, on: int | None = None):
     """Call the C entry point ``kernel`` of csrc/<source>.cu (``source``
-    defaults to ``kernel``) on ``device``'s current stream with ``args``
-    (tensors as their data pointers, ints as they are); raise if the launch
-    was refused."""
+    defaults to ``kernel``) on the stream ``on`` (``device``'s current
+    stream by default) with ``args`` (tensors as their data pointers, ints
+    as they are); raise if the launch was refused."""
     lib = build.load(source or kernel)
     args = [a.data_ptr() if torch.is_tensor(a) else a for a in args]
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(lib, kernel)(*args, stream)
+    stream_ = stream(device) if on is None else on
+    if device.index is None or device.index == torch.cuda.current_device():
+        rc = getattr(lib, kernel)(*args, stream_)
+    else:   # the launch goes to the current device: make it device's
+        with torch.cuda.device(device):
+            rc = getattr(lib, kernel)(*args, stream_)
     if rc != 0:
         raise RuntimeError(f"{kernel} launch failed: CUDA error {rc}")
