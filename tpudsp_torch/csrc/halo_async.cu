@@ -33,7 +33,7 @@
 // centred on load. Each thread computes R = 8 consecutive outputs for CG
 // channels (R x CG x 2 independent f32 sums, fused multiply-adds with
 // __fmaf_rn) over a group of phases: for each phase p and each q it reads
-// one tap per channel (a warp's lanes share p, so the read is a broadcast)
+// one tap per channel (the lanes of a half-warp share p: a broadcast)
 // and keeps a sliding window of 2R samples of row p in registers, so each
 // sample and each tap loaded serves R outputs. Threads are (output group g,
 // channel group, phase group h), g fastest. Where the B / R output groups
@@ -47,8 +47,9 @@
 // shape (C = 3, D1 = 125, Kc = 24, real taps): B = 128 (a 171 KB span, 36
 // KB of taps), CG = 3, H = 32 groups of 4 phases, 512 threads. At the bank
 // shape (C = 16, D1 = 10, Kc = 13, complex taps): B = 256 (32 KB for the
-// span or the sums, 17 KB of taps), CG = 4, H = 1, 128 threads. The summation order is the kernel's own: the
-// plain version is a matmul, held to 110 dB, not to its bits.
+// span or the sums, 17 KB of taps), CG = 4, H = 1, 128 threads. The
+// summation order is the kernel's own: the plain version is a matmul, held
+// to 110 dB, not to its bits.
 //
 // Bound. 4 f32 operations per tap, channel and output with real taps, 8
 // with complex ones: 1.15 GFLOP at the AM shape (real taps, Kc = 24,
