@@ -50,6 +50,16 @@ fails:
                 8193 and 16389 samples, also 3 rows), and linear_tail_scan
                 (the AM receiver's whole tail) at 96,000 samples with and
                 without DC tracking and at 16389;
+              first_order_scan_c64 (the complex64 entry): FMStereo's
+                pilot smoother (rho = 0.999) at 2^18 samples, lengths 7,
+                32, 33 and the tile edges, two chained calls, and against
+                float64 (>= 130 dB);
+              biquad_scan: CLowpassIIR(order=8, Fc=0.0075, mode="scan")'s
+                cascade on 2^18 complex64 samples, the cheby2 order-8
+                config and BroadcastAM's DC block at 7, 32, 33 samples and
+                the tile edges from random carried states (complex and
+                real rows), three chained calls, and both designs against
+                float64 at 65,536 samples (>= 120 dB);
               halo_async: the async-halo front end on a 1x1 mesh at the AM
                 shape (a 4M-sample c64 shard, the AM design's 3 phases of
                 24 x 125 offset-folded real taps, also with an nj that 8
@@ -57,9 +67,9 @@ fails:
                 taps decimating by 10, 4M samples of c64, int16 and uint8,
                 and a 1970-sample uint8 shard whose two launches are each
                 shorter than a tile), each with a random carried tail.
-              am_front_scan, agc_scan and first_order_scan must equal
-              their plain versions bit for bit (outputs, modes and final
-              states); pll_scan must reach 90 dB SNR with close final
+              am_front_scan, agc_scan, first_order_scan (both entries)
+              and biquad_scan must equal their plain versions bit for bit
+              (outputs, modes and final states); pll_scan must reach 90 dB SNR with close final
               states (and equal, with --parent, the parent's kernel bit for
               bit); halo_async must reach 110 dB (it sums in another order
               than cuBLAS);
@@ -84,7 +94,24 @@ fails:
               agc_scan and pll_scan launched during this path. Then
               AGC(throughput_mode=True, use_pallas=True) over three
               4M-sample blocks with carried state: finite, agc_scan launched;
-7. timing  -- per-format block time of the AM receiver (host clock and CUDA
+7. options -- AMReceiver with exact=True (backend='xla'), backend='xla'
+              and plan='composed' on 4M-sample c64 blocks: each >= 100 dB
+              against the float64 oracle chain past the first block,
+              composed against fused >= 70 dB, the XLA back end against the
+              fused-kernel back end >= 65 dB, each path's launches of every
+              kernel, each path's block time (median of 5, spread);
+8. surface -- every class beyond the AMRadio's, built with no device (so
+              on the card) at its users' sizes: CLowpassIIR(order=8,
+              Fc=0.0075, mode="scan") on 2^18-sample c64 callbacks,
+              BroadcastAM on 6291-sample blocks, FMStereo(600000, 48000) on
+              2^18-sample composite blocks, NCO, FreqDem, SSBDemod, Delay
+              and HilbertTransform on 2^18 samples; each against its
+              float64 oracle on a prefix of <= 65,536 samples (tests/
+              oracle/, or the reference topology written out in float64
+              where the oracle's own module imports the JAX package) at
+              FIDELITY.md section 1's bars, each path's launches, each
+              call timed (median of 5, spread);
+9. timing  -- per-format block time of the AM receiver (host clock and CUDA
               events), per-mode block time of the sharded receiver,
               per-callback time of the AMRadio (median of 5 with spread),
               one torch.profiler window over a c64 block (kernel launches
@@ -97,17 +124,20 @@ fails:
               halo_async's against one torch.nn.functional.conv1d call,
               TF32 off.
 
-Phases 3-6 also count first_order_scan's launches on their path: one per
-AMReceiver block, two per ShardedAMReceiver block (the DC tracker's rows
-and the de-emphasis), two per AMRadio callback (AmpModem's DC tracker and
-DeemphasisFilter), and fail on another count.
+Phases 3-8 also count the kernels' launches on their path (the counts set
+to 0 just before it, read just after) and fail on another count:
+first_order_scan once per AMReceiver block, twice per ShardedAMReceiver
+block (the DC tracker's rows and the de-emphasis) and per AMRadio callback
+(AmpModem's DC tracker and DeemphasisFilter); in phases 7 and 8 every
+kernel, per block or call (AM_OPTIONS, phase_surface).
 
-Prints the card's name and power limit first, a "kernels" JSON line before
-the last (per kernel: launches on its path, max abs error against its plain
-version, ms, plain ms, the bound computed from the shape, the library
-call's time, null where no single PyTorch call computes the function, and
-for the scans the steps per lane and ns per step at the main shape), and
-as the last line
+Prints the card's name and power limit first, and again (with the torch,
+CUDA and Python versions) just before a "kernels" JSON line, which comes
+before the last (per kernel: launches on its path, max abs error against
+its plain version, ms, plain ms, the bound computed from the shape, the
+library call's time, null where no single PyTorch call computes the
+function, and for the scans the steps per lane and ns per step at the
+main shape), and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero without that line when no CUDA device is present or when it
 is run outside a checkout of the repository.
@@ -147,6 +177,11 @@ OPS_AGC, OPS_PLL = 25, 20
 # within-block sum's 32 multiplies and 32 adds
 OPS_FIRST_ORDER = 64
 TILE_FO = 256 * 32          # samples of one tile of first_order_scan's carry scan
+# f32 operations per sample, row and section of biquad_scan: its two
+# double-float steps (125 each) and the output (3)
+OPS_BIQUAD = 253
+N_SURFACE = 1 << 18         # the classes' block: the README's callback
+N_ORACLE = 65_536           # the prefix held against the float64 oracles
 DC_RHO = 0.9995             # the AM receiver's DC tracker pole
 PARENT: Path | None = None  # --parent: a checkout of an earlier commit
 
@@ -193,14 +228,9 @@ def oracle_chain(iq, sos, H, rate, agc_bw, agc_scale, modulation, pcm_rate):
     tracker -> de-emphasis, from tests/oracle/liquid_oracle.py. The
     bandpass runs as scipy's sosfilt, the same transposed direct form II
     recurrence as its SosFilterOracle, in float64."""
-    import importlib.util
     import scipy.signal as sig
     from tpudsp_torch.design import iirdes
-    # loaded by path: an installed package named "tests" may shadow the repo's
-    spec = importlib.util.spec_from_file_location(
-        "liquid_oracle", ROOT / "tests" / "oracle" / "liquid_oracle.py")
-    lo = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(lo)
+    lo = liquid_oracle()
     bb = sig.sosfilt(sos, np.asarray(iq, np.complex128))
     agc = lo.AgcOracle(bandwidth=agc_bw)
     agc.scale = agc_scale
@@ -308,10 +338,11 @@ def _close_theta(name, kst, rst):
 
 
 def _bits_equal(a, b) -> bool:
-    """Every leaf of two state tuples equal bit for bit."""
+    """Every leaf of two state tuples equal bit for bit (a complex leaf as
+    its re and im)."""
     import torch
-    return all(torch.equal(u.cpu().view(torch.int32), v.cpu().view(torch.int32))
-               for u, v in zip(a, b))
+    bits = lambda t: (torch.view_as_real(t) if t.is_complex() else t).cpu().view(torch.int32)
+    return all(torch.equal(bits(u), bits(v)) for u, v in zip(a, b))
 
 
 def _compare(name, kernel_out, ref_out):
@@ -677,7 +708,8 @@ def _compare_exact(name, kernel_out, ref_out):
     torch.cuda.synchronize()
     shapes = all(k.shape == r.shape for k, r in zip(kernel_out, ref_out))
     same = shapes and _bits_equal(kernel_out, ref_out)
-    max_err = max(float((k.double() - r.double()).abs().max())
+    wide = lambda t: t.to(torch.complex128 if t.is_complex() else torch.float64)
+    max_err = max(float((wide(k) - wide(r)).abs().max())
                   for k, r in zip(kernel_out, ref_out)) if shapes else float("inf")
     log(f"kernel[{name}]: max_abs_err {max_err:.3e}, bit-equal {same}")
     if not same:
@@ -768,6 +800,8 @@ def phase_kernel():
     kernel_pll(x, xc)
     results["inputs"] = dict(x96k=x, x4m=x4, xc=xc)
     kernel_first_order()
+    kernel_first_order_c64()
+    kernel_biquad()
     # halo_async at the AM shape (its main path) and the bank shape
     _record("halo_async", *_compare_halo("halo_async AM shape C=3 Kc=24 D1=125 4M c64 real taps",
                                          halo_am_case(7)))
@@ -984,6 +1018,501 @@ def phase_compat():
     results["callbacks"] = callbacks
 
 
+# --------------------------------------------------------------------------
+# the compensated SOS cascade, the complex one-pole, the AM receiver's other
+# options and the rest of the class surface
+
+def liquid_oracle():
+    """tests/oracle/liquid_oracle.py (numpy only), loaded by path: an
+    installed package named "tests" may shadow the repo's."""
+    import importlib.util
+    if "liquid_oracle" not in sys.modules:
+        spec = importlib.util.spec_from_file_location(
+            "liquid_oracle", ROOT / "tests" / "oracle" / "liquid_oracle.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        sys.modules["liquid_oracle"] = mod
+    return sys.modules["liquid_oracle"]
+
+
+def noise_c64(n: int, seed: int, scale: float = 0.5):
+    rng = np.random.default_rng(seed)
+    return (scale * (rng.standard_normal(n) + 1j * rng.standard_normal(n))).astype(np.complex64)
+
+
+def clowpass_scan_sos():
+    """CLowpassIIR(order=8, Fc=0.0075, mode="scan")'s design (its
+    defaults: butter, Ap 0.5, As 20)."""
+    from tpudsp_torch.design import iirdes
+    return iirdes.iirdes_sos("butter", "lowpass", 8, 0.0075, 0.1, 0.5, 20.0)
+
+
+def dc_block_sos():
+    """BroadcastAM's DC block: cheby2 highpass, order 3, fc = 20/48000."""
+    from tpudsp_torch.design import iirdes
+    return iirdes.iirdes_sos("cheby2", "highpass", 3, 20.0 / 48000.0, Ap=0.5, As=20.0)
+
+
+def kernel_biquad():
+    """biquad_scan's cases, each bit for bit against its plain version
+    (kernels/iir.sos_apply_df) on the same card: the main shape, lengths at
+    a block and at the tile edges, real and complex rows, carried states,
+    chained calls; and the cascade against float64."""
+    import torch
+    from tpudsp_torch.cuda import biquad_scan as bq
+    from tpudsp_torch.design import iirdes
+    from tpudsp_torch.kernels import iir as kiir
+    hard = iirdes.iirdes_sos("cheby2", "lowpass", 8, 0.0075, As=60.0, Ap=0.5)
+    tab = lambda sos: torch.from_numpy(kiir.sos_table(sos)).to(DEV)
+    rng = np.random.default_rng(20)
+
+    def state(sos, cplx):
+        v = rng.standard_normal((len(sos), 2)) * 0.1
+        if cplx:
+            v = v + 1j * rng.standard_normal((len(sos), 2)) * 0.1
+        return torch.from_numpy(v.astype(np.complex64 if cplx else np.float32)).to(DEV)
+
+    def signal(n, cplx, seed):
+        x = noise_c64(n, seed)
+        return torch.from_numpy(x if cplx else x.real.copy()).to(DEV)
+
+    # the main shape: CLowpassIIR(order=8, Fc=0.0075, mode="scan") on the
+    # README's 2^18-sample callback of complex64
+    sos = clowpass_scan_sos()
+    x = signal(N_SURFACE, True, 21)
+    st = torch.zeros((len(sos), 2), dtype=torch.complex64, device=DEV)
+    ref, plain_ms = timed(lambda: kiir.sos_apply_df(tab(sos), st, x))
+    err = _compare_exact(f"biquad_scan CLowpassIIR order 8 c64 n={N_SURFACE}",
+                         bq.sos_apply_df(tab(sos), st, x), ref)
+    _record("biquad_scan", err, plain_ms)
+    results["inputs"]["biquad"] = (tab(sos), st, x)
+    # block and tile edges, real and complex rows, random carried states
+    for k, n in enumerate((7, 32, 33, TILE_FO - 1, TILE_FO, TILE_FO + 1, 2 * TILE_FO + 5)):
+        for cplx, design, name in ((True, hard, "cheby2 order 8"),
+                                   (False, dc_block_sos(), "DC block")):
+            xs, s0 = signal(n, cplx, 30 + k), state(design, cplx)
+            _compare_exact(f"biquad_scan {name} {'c64' if cplx else 'f32'} n={n}",
+                           bq.sos_apply_df(tab(design), s0, xs),
+                           kiir.sos_apply_df(tab(design), s0, xs))
+    # chained calls carrying the state
+    xs = signal(7 + TILE_FO + 1 + 2 * TILE_FO + 5, True, 40)
+    ks = rs = state(hard, True)
+    kout, rout = [], []
+    for a, b in ((0, 7), (7, 7 + TILE_FO + 1), (7 + TILE_FO + 1, xs.shape[0])):
+        ks, ky = bq.sos_apply_df(tab(hard), ks, xs[a:b])
+        rs, ry = kiir.sos_apply_df(tab(hard), rs, xs[a:b])
+        kout += [ks, ky]
+        rout += [rs, ry]
+    _compare_exact("biquad_scan cheby2 order 8 c64 three chained calls", kout, rout)
+    # against float64: the hard config (a plain f32 scan floors near 60 dB
+    # there) and BroadcastAM's near-unit-pole DC block
+    lo = liquid_oracle()
+    for name, design, xs in (("cheby2 order 8 c64", hard, signal(N_ORACLE, True, 41)),
+                             ("DC block f32", dc_block_sos(),
+                              signal(N_ORACLE, False, 42) + 1.0)):
+        _, y = bq.sos_apply_df(tab(design), torch.zeros((len(design), 2), dtype=xs.dtype,
+                                                         device=DEV), xs)
+        s = snr_db(lo.SosFilterOracle(design)(xs.cpu().numpy()), y.cpu().numpy())
+        log(f"kernel[biquad_scan {name} n={N_ORACLE}]: vs float64 {s:.2f} dB (bar 120)")
+        if not s >= 120.0:
+            raise AssertionError("biquad_scan is less accurate than its bar")
+
+
+def kernel_first_order_c64():
+    """first_order_scan's complex64 entry, bit for bit against its plain
+    version (kernels/iir.first_order_apply_blocked_c64) at the main shape
+    (FMStereo's pilot smoother on a 2^18-sample block), at a block and the
+    tile edges and over chained calls; and against float64."""
+    import torch
+    from tpudsp_torch.cuda import first_order as fo
+    from tpudsp_torch.kernels import iir as kiir
+    rho = 0.999                   # the pilot smoothers' pole
+    ab = (1.0 - rho, rho)
+    yp = torch.tensor(0.3 - 0.2j, dtype=torch.complex64, device=DEV)
+    x = torch.from_numpy(noise_c64(N_SURFACE, 50)).to(DEV)
+    ref, plain_ms = timed(lambda: kiir.first_order_apply_blocked_c64(*ab, yp, x))
+    err = _compare_exact(f"first_order_scan_c64 rho=0.999 n={N_SURFACE}",
+                         fo.first_order_apply_blocked_c64(*ab, yp, x), ref)
+    _record("first_order_scan_c64", err, plain_ms)
+    results["inputs"]["c64"] = (ab, yp, x)
+    for n in (7, 32, 33, TILE_FO - 1, TILE_FO, TILE_FO + 1, 2 * TILE_FO + 5):
+        xs = x[:n].contiguous()
+        _compare_exact(f"first_order_scan_c64 n={n}", fo.first_order_apply_blocked_c64(*ab, yp, xs),
+                       kiir.first_order_apply_blocked_c64(*ab, yp, xs))
+    k1 = fo.first_order_apply_blocked_c64(*ab, yp, x[:12_345])
+    k2 = fo.first_order_apply_blocked_c64(*ab, k1[0], x[12_345:40_000])
+    r1 = kiir.first_order_apply_blocked_c64(*ab, yp, x[:12_345])
+    r2 = kiir.first_order_apply_blocked_c64(*ab, r1[0], x[12_345:40_000])
+    _compare_exact("first_order_scan_c64 two chained calls", k1 + k2, r1 + r2)
+    import scipy.signal as sig
+    xo = x[:N_ORACLE].cpu().numpy().astype(np.complex128)
+    y64 = sig.lfilter([ab[0]], [1.0, -rho], xo, zi=[rho * complex(yp.cpu())])[0]
+    s = snr_db(y64, fo.first_order_apply_blocked_c64(*ab, yp, x[:N_ORACLE])[1].cpu().numpy())
+    log(f"kernel[first_order_scan_c64 n={N_ORACLE}]: vs float64 {s:.2f} dB (bar 130)")
+    if not s >= 130.0:
+        raise AssertionError("first_order_scan_c64 is less accurate than its bar")
+
+
+COUNTED = ("am_front_scan", "agc_scan", "pll_scan", "first_order_scan",
+           "first_order_scan_c64", "biquad_scan", "halo_async")
+
+
+def _counters():
+    """Every kernel wrapper's launch counter, by kernel name: (object,
+    attribute holder)."""
+    from tpudsp_torch.cuda import agc_scan, biquad_scan, first_order, halo_async, pll_scan
+    from tpudsp_torch.cuda import am_backend_scan as scan
+    return {"am_front_scan": scan._launch, "agc_scan": agc_scan._launch,
+            "pll_scan": pll_scan._launch, "first_order_scan": first_order._launch,
+            "first_order_scan_c64": first_order.first_order_apply_blocked_c64,
+            "biquad_scan": biquad_scan.sos_apply_df, "halo_async": halo_async._launch}
+
+
+def zero_counts():
+    for fn in _counters().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {k: fn.launches for k, fn in _counters().items()}
+
+
+def expect_counts(path: str, got: dict, want: dict):
+    """A path's launches of every kernel: exactly ``want`` (0 where not
+    named); each counts towards its kernel's launches on the main paths."""
+    want = {k: want.get(k, 0) for k in got}
+    log(f"{path}: launches {got} (expected {want})")
+    if got != want:
+        raise AssertionError(f"{path}: launches {got}, not {want}")
+    for k, v in got.items():
+        if v:
+            entry = results["kernels"].setdefault(k, {})
+            entry["launches"] = entry.get("launches", 0) + v
+
+
+def _med(times):
+    med = statistics.median(times)
+    return med, (max(times) - min(times)) / med
+
+
+# the AM receiver's other options, and each one's launches per 4M-sample
+# block at AMConfig(): the chunked AGC's 25 lanes need no tail; the chunked
+# PLL's 47 lanes of 2048 have a padded last one, re-run exactly
+AM_OPTIONS = {
+    "exact": (dict(exact=True, backend="xla"),
+              {"agc_scan": 1, "pll_scan": 1, "first_order_scan": 2}),
+    "xla": (dict(backend="xla"), {"agc_scan": 1, "pll_scan": 2, "first_order_scan": 2}),
+    "composed": (dict(plan="composed"), {"am_front_scan": 1, "first_order_scan": 1}),
+}
+
+
+def phase_options():
+    """AMReceiver with exact=True, backend='xla' and plan='composed' on
+    4M-sample c64 blocks: each >= 100 dB against the float64 oracle chain
+    past the first block, composed against fused >= 70 dB, the XLA back end
+    against the fused-kernel one >= 65 dB, each path's launches, and each
+    path's block time (median of 5, spread) beside the fused plan's."""
+    import torch
+    from tpudsp_torch.chains.am import AMConfig, AMReceiver
+    cfg = AMConfig()
+    data = wire_blocks(6, BLOCK_4M, seed=4)["c64"]
+    gpu = [torch.from_numpy(b).to(DEV) for b in data]
+    y_or = oracle_am_chain(np.concatenate(data[:2]), cfg)
+    settle = N_OUT_4M   # past the first block (PLL lock, DC settling)
+    rxs = {"fused": AMReceiver(cfg, BLOCK_4M, device=DEV)}
+    ys = {"fused": torch.cat([rxs["fused"](b) for b in gpu[:2]]).cpu().numpy()}
+    for name, (kw, per_block) in AM_OPTIONS.items():
+        rx = rxs[name] = AMReceiver(cfg, BLOCK_4M, device=DEV, **kw)
+        torch.cuda.synchronize()
+        zero_counts()                                  # the option's run starts
+        y = torch.cat([rx(b) for b in gpu[:2]])
+        torch.cuda.synchronize()
+        expect_counts(f"options {name}", read_counts(),   # ... and ends
+                      {k: 2 * v for k, v in per_block.items()})
+        ys[name] = y = y.cpu().numpy()
+        s = snr_db(y_or[settle:], y[settle:])
+        finite = y.shape == y_or.shape and bool(np.all(np.isfinite(y)))
+        log(f"options: AMReceiver {name} ({kw}), 2 x 4M-sample c64 blocks: vs float64 "
+            f"oracle chain {s:.2f} dB (bar 100), plan {rx.plan}, finite {finite}")
+        if not (finite and s >= 100.0):
+            raise AssertionError(f"options {name} vs oracle {s:.2f} dB")
+    s_cf = snr_db(ys["composed"][200:], ys["fused"][200:])
+    s_xk = snr_db(ys["xla"][3000:], ys["fused"][3000:])
+    log(f"options: composed vs fused {s_cf:.2f} dB (bar 70); xla back end vs fused-kernel "
+        f"back end {s_xk:.2f} dB (bar 65)")
+    if not (s_cf >= 70.0 and s_xk >= 65.0):
+        raise AssertionError("options: the plans or back ends disagree")
+    for name, rx in rxs.items():
+        med, spread = _block_times(rx, gpu)
+        log(f"timing: AMReceiver {name} c64 4M-sample block: median {med * 1e3:.3f} ms of 5 "
+            f"(spread {spread * 100:.1f}%), {BLOCK_4M / med / 1e6:.1f} Msamp/s; profiler "
+            f"window: {json.dumps(profile_block(rx, gpu))}")
+
+
+def _op_times(op, blocks):
+    """Host seconds of op on blocks[1:] after a warm-up call on blocks[0]
+    (each call returns numpy, so each ends synchronised): (median,
+    spread / median)."""
+    op(blocks[0])
+    times = []
+    for b in blocks[1:]:
+        t0 = time.perf_counter()
+        op(b)
+        times.append(time.perf_counter() - t0)
+    return _med(times)
+
+
+def _score(what: str, ref, y, bar: float):
+    s = snr_db(ref, y)
+    ok = np.shape(ref) == np.shape(y) and s >= bar
+    log(f"surface: {what}: {s:.2f} dB (bar {bar:g})")
+    if not ok:
+        raise AssertionError(f"surface: {what} {s:.2f} dB")
+
+
+def _run_path(name: str, op, blocks, want_per_call: dict):
+    """op over blocks on the card, its launches counted: returns the
+    outputs."""
+    import torch
+    torch.cuda.synchronize()
+    zero_counts()                                      # the path starts
+    outs = [op(b) for b in blocks]
+    torch.cuda.synchronize()
+    expect_counts(f"surface {name}", read_counts(),    # ... and ends
+                  {k: len(blocks) * v for k, v in want_per_call.items()})
+    if not all(np.all(np.isfinite(o)) for o in outs):
+        raise AssertionError(f"surface {name}: output not finite")
+    return outs
+
+
+def broadcast_am_f64(x, slen: int = 25):
+    """BroadcastAM's reference topology in float64 (tests/oracle/
+    composite_oracle.BroadcastAMOracle's loop, with the port's designs):
+    the Kaiser lowpass and the delay are LTI, so they run over the block;
+    the carrier PLL runs sample by sample on liquid's 32-bit NCO; the DC
+    block is SosFilterOracle's recurrence."""
+    from tpudsp_torch.design import firdes
+    lo = liquid_oracle()
+    x = np.asarray(x, np.complex128)
+    n = len(x)
+    x0 = np.convolve(x, firdes.kaiser_lowpass(2 * slen + 1, 0.01, 40.0))[:n]
+    x1 = np.concatenate([np.zeros(slen), x])[:n]
+    nco = lo.NcoOracle()
+    nco.set_pll_bandwidth(0.001)
+    theta = np.empty(n)
+    for k in range(n):
+        theta[k] = nco.phase
+        nco.pll_step(np.angle(x0[k] * np.exp(-1j * theta[k])))
+        nco.step()
+    return lo.SosFilterOracle(dc_block_sos())((x1 * np.exp(-1j * theta)).real).real
+
+
+def stereo_composite(n: int, la, ra, iq_rate: float = 600_000.0, scale: float = 0.04):
+    """tests/test_oracle_composite.py's FM stereo IQ (kd = 4)."""
+    t = np.arange(n)
+    f_p = 19000.0 / iq_rate
+    comp = ((la + ra) / 2 + 0.1 * np.cos(2 * np.pi * f_p * t)
+            + ((la - ra) / 2) * np.cos(2 * np.pi * 2 * f_p * t)) * scale
+    return np.exp(1j * 2 * np.pi * 4.0 * np.cumsum(comp)).astype(np.complex64)
+
+
+def fm_stereo_mono_f64(x, iq_rate: float = 600_000.0, pcm_rate: float = 48_000.0):
+    """The left channel of tests/oracle/composite_oracle.FMStereoOracle
+    (pll_bw 1e-5, warm start: the reference topology's pilot loop locked)
+    in float64 with the port's designs: freqdem (kd = 4) over the block,
+    the pilot NCO sample by sample, then the de-emphasis (the same
+    recurrence as FirstOrderOracle, by scipy) and ResampOracle over the
+    block (both LTI or block-invariant)."""
+    import scipy.signal as sig
+    from tpudsp_torch.design import firdes, iirdes
+    lo = liquid_oracle()
+    x = np.asarray(x, np.complex128)
+    s = np.angle(np.conj(np.concatenate([[1.0], x[:-1]])) * x) / (2 * np.pi * 4.0)
+    nco = lo.NcoOracle()
+    nco.set_pll_bandwidth(1e-5)
+    nco.set_frequency(2 * np.pi * 19000.0 / iq_rate)
+    perr = 0.0
+    left = np.empty(len(x))
+    for k in range(len(x)):
+        sc = s[k] * np.exp(-1j * nco.phase)
+        perr = 0.999 * perr + 0.001 * np.angle(sc)
+        sc = sc * np.exp(-1j * nco.phase)
+        nco.pll_step(perr)
+        nco.step()
+        left[k] = s[k] + sc.real
+    b0, a = iirdes.deemphasis_coeffs(iq_rate)
+    left = sig.lfilter([b0], [1.0, -a], left)
+    rate = pcm_rate / iq_rate
+    m, fc, As, npfb = firdes.default_resamp_params(rate)
+    return lo.ResampOracle(firdes.resamp_bank(m, fc, As, npfb), rate)(left)
+
+
+def mono_agreement(y_ref, y, fs: float = 48_000.0):
+    """tests/test_oracle_composite.py's mono-path comparison: a 10 kHz
+    audio lowpass on both, the second half, fractional-delay alignment by
+    8x resampling and cross-correlation; returns (gain, SNR in dB)."""
+    import scipy.signal as sig
+    h = sig.firwin(201, 10000.0, fs=fs)
+    a = np.convolve(y_ref, h, mode="valid")
+    b = np.convolve(np.asarray(y, np.float64), h, mode="valid")
+    m = min(len(a), len(b))
+    a, b = a[m // 2:m], b[m // 2:m]
+    up = 8
+    au, bu = sig.resample(a, up * len(a)), sig.resample(b, up * len(b))
+    lag = np.argmax(np.correlate(bu, au, mode="full")) - (len(au) - 1)
+    if lag >= 0:
+        bu = bu[lag:]
+    else:
+        au = au[-lag:]
+    m = min(len(au), len(bu)) - up * 8
+    au, bu = au[:m], bu[:m]
+    g = np.dot(au, bu) / np.dot(au, au)
+    return g, snr_db(g * au, bu)
+
+
+def separation_db(y, f_l: float, f_r: float, fs: float = 48_000.0):
+    """L / R separation of tones f_l, f_r over the last quarter of y (N, 2)."""
+    L, R = y[3 * len(y) // 4:, 0], y[3 * len(y) // 4:, 1]
+    w = np.hanning(len(L))
+    fl = np.fft.rfftfreq(len(L), 1 / fs)
+    sL, sR = np.abs(np.fft.rfft(L * w)), np.abs(np.fft.rfft(R * w))
+    il, ir = np.argmin(np.abs(fl - f_l)), np.argmin(np.abs(fl - f_r))
+    pk = lambda s, i: np.max(s[i - 3:i + 4])
+    return 20 * np.log10(pk(sL, il) / pk(sL, ir)), 20 * np.log10(pk(sR, ir) / pk(sR, il))
+
+
+def hilbert_f64(h, x, interp: bool):
+    """HilbertTransform's interp (complex -> real at 2x) or decim (real ->
+    complex at 1/2) in float64 from a zero state."""
+    x = np.asarray(x, np.complex128 if interp else np.float64)
+    if interp:
+        up = np.zeros(2 * len(x), np.complex128)
+        up[::2] = 2.0 * x
+        xf = np.convolve(up, h)[:len(up)]
+        return (xf * 1j ** np.arange(len(up))).real
+    xf = np.convolve(x * (-1j) ** np.arange(len(x)), h)[:len(x)]
+    return 2.0 * xf[::2]
+
+
+def phase_surface():
+    """Every class beyond the README's AMRadio, built with no device (so
+    on the card), at the sizes its users call: each against its float64
+    oracle on a prefix of <= 65,536 samples at FIDELITY.md section 1's
+    bars, its launches counted, and its call timed (median of 5)."""
+    import tpudsp_torch.compat as liquiddsp
+    from tpudsp_torch.design import firdes
+    lo = liquid_oracle()
+    nb = 6                                    # blocks: one warm-up, five timed
+    times = {}
+
+    def blocks(x, size):
+        return [x[k * size:(k + 1) * size] for k in range(len(x) // size)]
+
+    # CLowpassIIR in scan mode on complex64 callbacks
+    f = liquiddsp.CLowpassIIR(order=8, Fc=0.0075, mode="scan")
+    if f.device.type != DEV or f.mode != "scan":
+        raise AssertionError(f"CLowpassIIR built on {f.device} in mode {f.mode}")
+    x = noise_c64(nb * N_SURFACE, 60)
+    y = np.concatenate(_run_path("CLowpassIIR scan", f, blocks(x, N_SURFACE),
+                                 {"biquad_scan": 1}))
+    _score(f"CLowpassIIR(order=8, Fc=0.0075, mode='scan') vs float64 n={N_ORACLE}",
+           lo.SosFilterOracle(clowpass_scan_sos())(x[:N_ORACLE]), y[:N_ORACLE], 120.0)
+    times["CLowpassIIR scan"] = _op_times(liquiddsp.CLowpassIIR(order=8, Fc=0.0075, mode="scan"),
+                                          blocks(x, N_SURFACE))
+    # BroadcastAM on the callback's 6291 pcm samples at 48 kHz
+    t = np.arange(10 * N_CALLBACK_OUT)
+    m = np.sin(2 * np.pi * 2000.0 / 48_000.0 * t)
+    xb = ((1.0 + 0.5 * m) * np.exp(2j * np.pi * 0.001 * t + 0.5j)).astype(np.complex64)
+    op = liquiddsp.BroadcastAM()
+    y = np.concatenate(_run_path("BroadcastAM", op, blocks(xb, N_CALLBACK_OUT),
+                                 {"pll_scan": 1, "biquad_scan": 1}))
+    _score(f"BroadcastAM vs float64 oracle past 30000 of n={len(xb)}",
+           broadcast_am_f64(xb)[30_000:], y[30_000:].astype(np.float64), 110.0)
+    times["BroadcastAM"] = _op_times(liquiddsp.BroadcastAM(), blocks(xb, N_CALLBACK_OUT))
+    # FMStereo on 2^18-sample composite blocks: separation at full size,
+    # the mono path against the reference topology on a 65,536 prefix
+    n = nb * N_SURFACE
+    tone = lambda fq: np.sin(2 * np.pi * fq / 600_000.0 * np.arange(n))
+    xs = stereo_composite(n, tone(800.0), tone(2300.0))
+    op = liquiddsp.FMStereo(600_000.0, 48_000.0)
+    ys = np.concatenate(_run_path("FMStereo", op, blocks(xs, N_SURFACE),
+                                  {"first_order_scan_c64": 2, "first_order_scan": 1}))
+    sep = separation_db(ys, 800.0, 2300.0)
+    log(f"surface: FMStereo L/R separation {sep[0]:.2f} / {sep[1]:.2f} dB (bar 60), "
+        f"{ys.shape} pcm")
+    if not (ys.shape[1] == 2 and min(sep) >= 60.0):
+        raise AssertionError("surface: FMStereo does not separate")
+    la = tone(1000.0)[:N_ORACLE] + 0.5 * tone(6300.0)[:N_ORACLE]
+    xm = stereo_composite(N_ORACLE, la, la)
+    g, s = mono_agreement(fm_stereo_mono_f64(xm), liquiddsp.FMStereo(600_000.0, 48_000.0)(xm)[:, 0])
+    log(f"surface: FMStereo mono path vs reference-topology oracle n={N_ORACLE}: "
+        f"{s:.2f} dB (bar 30), gain {g:.4f}")
+    if not (0.9 < g < 1.1 and s >= 30.0):
+        raise AssertionError("surface: FMStereo mono path disagrees with its oracle")
+    times["FMStereo"] = _op_times(liquiddsp.FMStereo(600_000.0, 48_000.0), blocks(xs, N_SURFACE))
+    # NCO, FreqDem, SSBDemod, Delay, HilbertTransform on 2^18 samples
+    xn = noise_c64(nb * N_SURFACE, 61)
+    nco = liquiddsp.NCO()
+    nco.freq, nco.phase = 0.3, 1.0
+    y = np.concatenate(_run_path("NCO", nco, blocks(xn, N_SURFACE), {}))
+    orc = lo.NcoOracle()
+    orc.set_frequency(0.3)
+    orc.set_phase(1.0)
+    _score(f"NCO mix_up vs liquid's 32-bit accumulator n={N_ORACLE}",
+           orc.mix_up(xn[:N_ORACLE]), y[:N_ORACLE], 120.0)
+    times["NCO"] = _op_times(nco, blocks(xn, N_SURFACE))
+    kd = 0.1
+    msg = 0.8 * np.sin(2 * np.pi * 1000.0 / 48_000.0 * np.arange(nb * N_SURFACE))
+    xf = np.exp(1j * 2 * np.pi * kd * np.cumsum(msg)).astype(np.complex64)
+    y = np.concatenate(_run_path("FreqDem", liquiddsp.FreqDem(kd), blocks(xf, N_SURFACE), {}))
+    _score(f"FreqDem vs float64 n={N_ORACLE}", lo.FreqDemOracle(kd)(xf[:N_ORACLE]),
+           y[:N_ORACLE], 100.0)
+    times["FreqDem"] = _op_times(liquiddsp.FreqDem(kd), blocks(xf, N_SURFACE))
+    fq = 0.03
+    xu = np.exp(2j * np.pi * fq * np.arange(nb * N_SURFACE)).astype(np.complex64)
+    y = np.concatenate(_run_path("SSBDemod", liquiddsp.SSBDemod("usb"), blocks(xu, N_SURFACE), {}))
+    d = 2 * liquiddsp.SSBDemod.HILB_M
+    ref = 2 * np.cos(2 * np.pi * fq * (np.arange(N_ORACLE) - d))
+    _score(f"SSBDemod usb vs the analytic reference n={N_ORACLE}",
+           ref[1000:-1000], y[1000:N_ORACLE - 1000], 65.0)
+    z = liquiddsp.SSBDemod("lsb")(xu[:N_ORACLE])
+    rej = 10 * np.log10(np.mean(y[1000:N_ORACLE - 1000] ** 2) / np.mean(z[1000:-1000] ** 2))
+    log(f"surface: SSBDemod rejection of the other band {rej:.2f} dB (bar 65)")
+    if not rej >= 65.0:
+        raise AssertionError("surface: SSBDemod does not reject the other band")
+    times["SSBDemod"] = _op_times(liquiddsp.SSBDemod("usb"), blocks(xu, N_SURFACE))
+    y = np.concatenate(_run_path("Delay", liquiddsp.Delay(25), blocks(xn, N_SURFACE), {}))
+    exact = np.array_equal(lo.DelayOracle(25, complex_data=True)(xn[:N_ORACLE]),
+                           y[:N_ORACLE])
+    log(f"surface: Delay(25) equal to its oracle n={N_ORACLE}: {exact}")
+    if not exact:
+        raise AssertionError("surface: Delay differs from its oracle")
+    times["Delay"] = _op_times(liquiddsp.Delay(25), blocks(xn, N_SURFACE))
+    h = firdes.halfband_lowpass(5, 60.0)
+    y = np.concatenate(_run_path("HilbertTransform interp", liquiddsp.HilbertTransform(),
+                                 blocks(xn, N_SURFACE), {}))
+    _score(f"HilbertTransform interp vs float64 n={N_ORACLE}",
+           hilbert_f64(h, xn[:N_ORACLE], True), y[:2 * N_ORACLE], 120.0)
+    times["HilbertTransform interp"] = _op_times(liquiddsp.HilbertTransform(),
+                                                 blocks(xn, N_SURFACE))
+    xr = np.ascontiguousarray(xn.real)
+    y = np.concatenate(_run_path("HilbertTransform decim", liquiddsp.HilbertTransform(),
+                                 blocks(xr, N_SURFACE), {}))
+    _score(f"HilbertTransform decim vs float64 n={N_ORACLE}",
+           hilbert_f64(h, xr[:N_ORACLE], False), y[:N_ORACLE // 2], 120.0)
+    times["HilbertTransform decim"] = _op_times(liquiddsp.HilbertTransform(),
+                                                blocks(xr, N_SURFACE))
+    for name, (med, spread) in times.items():
+        log(f"timing: {name} call: median {med * 1e3:.3f} ms of 5 (spread {spread * 100:.1f}%)")
+    # where a call's time goes, for the classes that launch the new kernels
+    for name, op, bl in (
+            ("CLowpassIIR scan", liquiddsp.CLowpassIIR(order=8, Fc=0.0075, mode="scan"),
+             blocks(x, N_SURFACE)),
+            ("BroadcastAM", liquiddsp.BroadcastAM(), blocks(xb, N_CALLBACK_OUT)),
+            ("FMStereo", liquiddsp.FMStereo(600_000.0, 48_000.0), blocks(xs, N_SURFACE))):
+        log(f"timing: {name} call, profiler window: {json.dumps(profile_block(op, bl))}")
+
+
 RADIO_STAGES = ("bandpass", "resample", "agc", "am", "audio_filter")
 
 
@@ -1189,9 +1718,7 @@ def phase_timing():
     from tpudsp_torch.kernels import pll as kpll
     from tpudsp_torch.cuda import halo_async
     from tpudsp_torch.parallel import ShardedAMReceiver, make_mesh
-    counts = (scan._launch.launches, agc_scan._launch.launches,
-              pll_scan._launch.launches, halo_async._launch.launches,
-              first_order._launch.launches)
+    counts = read_counts()
     data = wire_blocks(6, BLOCK_4M, seed=3)     # a distinct block every call
     for fmt in ("c64", "i16", "u8"):
         rx = AMReceiver(AMConfig(), BLOCK_4M, fmt, device=DEV)
@@ -1287,9 +1814,22 @@ def phase_timing():
              "agc_scan": (_cuda_ms(lambda: agc_scan._launch(ap, ast, are, aim, an, AGC_WARMUP),
                                    10), AGC_WARMUP + AGC_CHUNK)}
     time_halo_async(calls)
+    # biquad_scan at its main shape: CLowpassIIR(order=8, Fc=0.0075,
+    # mode="scan") on 2^18 complex64 samples, 4 sections of 2 rows
+    from tpudsp_torch.cuda import biquad_scan
+    tab, bst, bx = results["inputs"]["biquad"]
+    k["biquad_scan"]["ms"] = _cuda_ms(lambda: biquad_scan.sos_apply_df(tab, bst, bx), 20)
+    rows = 2 if bx.is_complex() else 1
+    bound("biquad_scan", bx.numel() * bx.element_size() * 2,
+          bx.shape[0] * rows * tab.shape[0] * OPS_BIQUAD)
+    # the complex64 entry at FMStereo's pilot smoother shape (2^18 samples)
+    ab, cyp, cx = results["inputs"]["c64"]
+    k["first_order_scan_c64"]["ms"] = _cuda_ms(
+        lambda: first_order.first_order_apply_blocked_c64(*ab, cyp, cx), 20)
+    bound("first_order_scan_c64", cx.shape[0] * (8 + 8), cx.shape[0] * 2 * OPS_FIRST_ORDER)
     # timing launches are not a path's
-    (scan._launch.launches, agc_scan._launch.launches, pll_scan._launch.launches,
-     halo_async._launch.launches, first_order._launch.launches) = counts
+    for name, fn in _counters().items():
+        fn.launches = counts[name]
     for name, v in k.items():
         steps = v.get("steps_per_lane")
         v["ns_per_step"] = v["ms"] * 1e6 / steps if steps else None
@@ -1311,7 +1851,7 @@ def phase_timing():
 
 PHASES = [("build", phase_build), ("kernel", phase_kernel), ("chain", phase_chain),
           ("width", phase_width), ("sharded", phase_sharded), ("compat", phase_compat),
-          ("timing", phase_timing)]
+          ("options", phase_options), ("surface", phase_surface), ("timing", phase_timing)]
 
 KERNELS = [
     ("am_front_scan", "tpudsp_torch/csrc/am_front_scan.cu",
@@ -1322,6 +1862,11 @@ KERNELS = [
     ("halo_async", "tpudsp_torch/csrc/halo_async.cu", "tpudsp/pallas/halo_async.py:43"),
     # an einsum and a lax.scan in the JAX package, not a Pallas kernel
     ("first_order_scan", "tpudsp_torch/csrc/first_order_scan.cu", "tpudsp/kernels/iir.py:283"),
+    # the same, with a complex64 lax.scan carry: an entry of the same source
+    ("first_order_scan_c64", "tpudsp_torch/csrc/first_order_scan.cu",
+     "tpudsp/kernels/iir.py:343"),
+    # an associative scan of double-float 2x2 maps, not a Pallas kernel
+    ("biquad_scan", "tpudsp_torch/csrc/biquad_scan.cu", "tpudsp/kernels/iir.py:212"),
 ]
 
 
@@ -1352,10 +1897,12 @@ def main() -> int:
     PARENT = args.parent.resolve() if args.parent else None
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
-    log(smi.stdout.strip() or f"nvidia-smi failed: {smi.stderr.strip()}")
+    card = smi.stdout.strip() or f"nvidia-smi failed: {smi.stderr.strip()}"
+    versions = (f"torch {torch.__version__} cuda {torch.version.cuda} "
+                f"python {sys.version.split()[0]}")
+    log(card)
     sys.path.insert(0, str(ROOT))
-    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
-        f"python {sys.version.split()[0]}")
+    log(versions)
     failed = []
     for name, fn in PHASES:
         t0 = time.perf_counter()
@@ -1371,6 +1918,8 @@ def main() -> int:
     if failed:
         print(f"chip_smoke.py: failed phases: {failed}", file=sys.stderr)
         return 1
+    # the card and versions again, where the end of a long log keeps them
+    log(f"{card}; {versions}")
     k = results["kernels"]
     log(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": source, "replaces": replaces,

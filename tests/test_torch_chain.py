@@ -111,11 +111,5 @@ def test_squelch_events_match_tpudsp():
     assert tevents(torch.from_numpy(modes[1])) == jevents(modes[1])
 
 
-def test_receiver_options_not_ported_raise():
-    for kw in (dict(plan="composed"), dict(exact=True), dict(backend="xla")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            tam.AMReceiver(tam.AMConfig(), 50_000, device="cpu", **kw)
-
-
 def test_receiver_launches_no_kernel_on_cpu(outputs):
     assert tscan._launch.launches == 0

@@ -74,3 +74,13 @@ def test_freqresponses_equal():
     sos = jiir.iirdes_sos("cheby2", "lowpass", 8, 0.0075, As=60.0)
     _same(tiir.sos_freqresponse(sos, f), jiir.sos_freqresponse(sos, f))
     assert tiir.sos_freqresponse(sos, 0.0) == jiir.sos_freqresponse(sos, 0.0)
+
+
+@pytest.mark.parametrize("m,As", [(5, 60.0), (12, 40.0), (3, 20.0)])
+def test_halfband_lowpass_equal(m, As):
+    _same(tfir.halfband_lowpass(m, As), jfir.halfband_lowpass(m, As))
+
+
+@pytest.mark.parametrize("rate", [600000.0, 240000.0, 44100.0 * 4])
+def test_stereo_audio_lowpass_equal(rate):
+    _same(tfir.stereo_audio_lowpass(rate), jfir.stereo_audio_lowpass(rate))

@@ -22,6 +22,7 @@ import torch
 
 import tpudsp.compat as jdsp
 import tpudsp_torch.compat as tdsp
+from tests.oracle.liquid_oracle import SosFilterOracle
 from tests.util import noise, snr_db, tones
 from tpudsp.kernels.ampmodem import modulate
 from tpudsp_torch import convert
@@ -384,9 +385,24 @@ def test_print_methods(capsys):
     assert len(capsys.readouterr().out.splitlines()) >= 4
 
 
-def test_iir_scan_mode_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A #7"):
-        tdsp.CLowpassIIR(order=2, Fc=0.1, mode="scan")
+def test_iir_scan_mode_matches_tpudsp():
+    """mode="scan" runs the double-float SOS cascade: >= 130 dB against
+    tpudsp's scan mode over two blocks, and a design whose impulse
+    response does not fit in TIR_MAX_TAPS takes it under "auto" (>= 120
+    dB against the float64 recurrence)."""
+    x = noise(4000, seed=11).astype(np.complex64)
+    jf = jdsp.CLowpassIIR(order=2, Fc=0.1, mode="scan")
+    tf = tdsp.CLowpassIIR(order=2, Fc=0.1, mode="scan")
+    assert tf.mode == jf.mode == "scan"
+    for part in (x[:2000], x[2000:]):
+        assert snr_db(jf(part), tf(part)) > 130.0
+    assert tf.state.shape == (1, 2) and tf.state.dtype == np.complex64
+    tf.reset()
+    assert np.all(tf.state == 0)
+    slow = tdsp.RLowpassIIR(order=2, Fc=1e-5)
+    assert slow.mode == "scan"
+    xr = noise(3000, complex_out=False, seed=12).astype(np.float32)
+    assert snr_db(SosFilterOracle(slow._sos)(xr), slow(xr)) > 120.0
 
 
 def test_default_device_is_the_card(monkeypatch):

@@ -12,18 +12,20 @@ becomes a hand-written CUDA kernel under ``csrc/``, built at first use by
 runs the kernel's plain PyTorch version when its input lies on the CPU,
 and launches the kernel (or raises) when it lies on a CUDA device.
 
-Ported so far: the fused single-channel AM receiver
-(``chains.am.AMReceiver``) on c64, i16 and u8 input, with the AGC +
-squelch + carrier-PLL feedback core as the CUDA kernel
-``csrc/am_front_scan.cu``; and the reference class surface the README's
-AMRadio uses (``compat``: AGC, the IIR / FIR filters, the resamplers,
-AmpModem, bytes_to_iq), with the AGC scan (``csrc/agc_scan.cu``) and the
-carrier-PLL scan (``csrc/pll_scan.cu``) as CUDA kernels; and the same AM
-receiver time-sharded on torch.distributed (``parallel.ShardedAMReceiver``),
-with the async-halo front end as the CUDA kernel ``csrc/halo_async.cu``.
-Their DC trackers and de-emphasis (the AM receiver's whole linear tail in
-one launch) are the blocked first-order scan ``csrc/first_order_scan.cu``.
-Everything runs on the card ("cuda") unless the caller asks for the CPU.
+Ported so far: the single-channel AM receiver (``chains.am.AMReceiver``)
+with every plan, exact and back-end option of the JAX receiver, on c64,
+i16 and u8 input, with the AGC + squelch + carrier-PLL feedback core as
+the CUDA kernel ``csrc/am_front_scan.cu``; the whole reference class
+surface (``compat``: the 29 classes and bytes_to_iq), with the AGC scan
+(``csrc/agc_scan.cu``), the carrier-PLL scan (``csrc/pll_scan.cu``) and
+the compensated SOS cascade of the IIR scan mode and BroadcastAM
+(``csrc/biquad_scan.cu``) as CUDA kernels; and the AM receiver
+time-sharded on torch.distributed (``parallel.ShardedAMReceiver``), with
+the async-halo front end as the CUDA kernel ``csrc/halo_async.cu``. Their
+DC trackers, de-emphasis and FMStereo's pilot smoothers are the blocked
+first-order scan ``csrc/first_order_scan.cu`` (the AM receiver's whole
+linear tail in one launch; a complex64 entry for the pilot). Everything
+runs on the card ("cuda") unless the caller asks for the CPU.
 """
 
 from .chains.am import AMConfig, AMReceiver  # noqa: F401

@@ -2,25 +2,37 @@
 
     pcm = deemph( am( agc( resample( bandpass(iq) ))))
 
-over fixed-size IQ blocks with explicit carried state. The port runs the
-``fused`` plan: the bandpass IIR (as its truncated impulse response) is
-folded into the decimating polyphase resampler and evaluated only at the
-48 kHz output points as one strided matmul (``kernels/decimate``). The
-back end is the fused-kernel path, the counterpart of the JAX package's
-``backend='pallas'``: the AGC + squelch + carrier-PLL feedback core runs
-in the CUDA kernel ``csrc/am_front_scan.cu`` (its plain version on the
-CPU), then the DC tracker and de-emphasis run as blocked scans.
+over fixed-size IQ blocks with explicit carried state. Two plans, as in
+the JAX package:
 
-The JAX package runs its Pallas kernel only while the warmup fits a VMEM
-cap (``PALLAS_WARMUP_MAX``) and falls back to XLA scans beyond it; the
-CUDA kernel reads its warmup windows from device memory, so the port runs
-the kernel at any warmup. Its chunk is ``warmup.chunk_for(warmup)``
-(3840 at the default config), the chunk of the JAX package's XLA back end;
-the JAX Pallas back end passes its wrapper's default chunk of 1024.
+- ``fused`` (default): the bandpass IIR (as its truncated impulse
+  response) is folded into the decimating polyphase resampler and
+  evaluated only at the 48 kHz output points as one strided matmul
+  (``kernels/decimate``). It needs a rational rate; the receiver takes
+  the composed plan otherwise.
+- ``composed``: each stage in the reference's order, the bandpass as an
+  overlap-save FIR (``kernels/fir``, ``torch.fft``) and the resampler's
+  gather and dot (``kernels/resamp``).
 
-Not ported yet, and raising NotImplementedError: ``plan='composed'``
-(ROADMAP.md Queue A #6), ``exact=True`` (Queue A #14) and the XLA back
-end with its separate AGC and PLL chunked scans (Queue A #15).
+Two back ends (AGC -> AmpModem -> de-emphasis at the pcm rate):
+
+- ``'kernel'`` (the port's default; ``'pallas'`` is another name for it,
+  so that the JAX package's keyword values work): the AGC + squelch +
+  carrier-PLL feedback core in the CUDA kernel ``csrc/am_front_scan.cu``,
+  then the DC tracker and de-emphasis in one launch of
+  ``csrc/first_order_scan.cu``. The JAX package runs its Pallas kernel
+  only while the warmup fits a VMEM cap (``PALLAS_WARMUP_MAX``) and falls
+  back to XLA scans beyond it; the CUDA kernel reads its warmup windows
+  from device memory, so the port runs it at any warmup. Its chunk is
+  ``warmup.chunk_for(warmup)`` (3840 at the default config), the chunk of
+  the JAX package's XLA back end.
+- ``'xla'`` (the JAX package's default): the chunked AGC
+  (``cuda/agc_scan.agc_chunked``, csrc/agc_scan.cu), AmpModem with the
+  chunked carrier PLL (csrc/pll_scan.cu, libm atan2) and its DC tracker,
+  then the de-emphasis (each a csrc/first_order_scan.cu launch). With
+  ``exact=True`` the AGC and the PLL run their exact single-lane scans
+  instead; the fused-kernel back end is the chunked path, so it refuses
+  ``exact=True`` (ValueError), as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -33,18 +45,23 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..cuda import agc_scan, first_order
 from ..cuda.am_backend_scan import am_backend_chunked
 from ..design import firdes, iirdes
 from ..kernels import agc as kagc
 from ..kernels import am_backend as kab
 from ..kernels import ampmodem as kam
 from ..kernels import decimate as kdec
+from ..kernels import fir as kfir
+from ..kernels import lanes
 from ..kernels import resamp as krs
 from ..kernels import warmup as kwarm
 from . import metrics as kmet
 from .metrics import BlockMetrics
 
 INPUT_FORMATS = ("c64", "i16", "u8")
+PLANS = ("fused", "composed")
+BACKENDS = ("kernel", "pallas", "xla")   # 'pallas': the JAX name of 'kernel'
 
 
 @dataclass(frozen=True)
@@ -121,11 +138,9 @@ def build(cfg: AMConfig, block_len: int, input_format: str = "c64",
             f"block_len {block_len} * rate {rate} must be integral, got {n_out_f}"
         )
     pq = _rational(rate)
-    if pq is None:
-        raise NotImplementedError(
-            "an irrational rate needs the composed plan, not ported yet "
-            "(ROADMAP.md Queue A #6)")
-    P, Q = pq
+    if pq is None and input_format != "c64":
+        raise ValueError(f"input_format={input_format!r} needs the fused plan "
+                         "(a rational rate)")
     sos = iirdes.iirdes_sos("cheby2", "lowpass", cfg.order,
                             cfg.bandwidth / cfg.iq_rate, As=60.0, Ap=0.5)
     h_bp = iirdes.sos_impulse_response(sos, tol=1e-11)
@@ -134,8 +149,12 @@ def build(cfg: AMConfig, block_len: int, input_format: str = "c64",
     H = firdes.resamp_bank(cfg.resamp_m, 0.45 * rate, 60.0, cfg.resamp_npfb)
     _, q, frac, _ = krs.plan(0.0, block_len, rate)
     assert len(q) == n_out
-    taps_raw, _, offs = kdec.plan_fused_frontend(H, h_bp, P, Q)
-    taps_fused = kdec.fold_offsets(taps_raw, offs, Q)
+    # the fused taps exist for a rational rate only (the composed plan
+    # does not read them)
+    taps_fused = np.zeros((1, 1, 1), np.float32)
+    if pq is not None:
+        taps_raw, _, offs = kdec.plan_fused_frontend(H, h_bp, *pq)
+        taps_fused = kdec.fold_offsets(taps_raw, offs, pq[1])
     u8_dc = None
     if input_format == "i16":
         taps_fused = taps_fused * np.float32(1.0 / 32767.0)
@@ -181,36 +200,76 @@ def build(cfg: AMConfig, block_len: int, input_format: str = "c64",
     return params, state, n_out
 
 
-def _check_back_end(exact: bool, backend: str):
-    if exact:
-        raise NotImplementedError("exact=True (sequential AGC/PLL scans) is "
-                                  "not ported yet (ROADMAP.md Queue A #14)")
-    if backend != "kernel":
-        raise NotImplementedError(
-            f"backend={backend!r}: only the fused-kernel back end "
-            "('kernel') is ported; the XLA back end's separate AGC and PLL "
-            "chunked scans are ROADMAP.md Queue A #15")
+def _check_back_end(exact: bool, backend: str) -> str:
+    """The back end's name ('pallas' is 'kernel'); raise on an unknown one
+    and on the fused-kernel back end with exact=True."""
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r} (use 'kernel', 'pallas' or 'xla')")
+    if backend != "xla" and exact:
+        raise ValueError(f"backend={backend!r} requires exact=False "
+                         "(the fused kernel is the chunked path)")
+    return "kernel" if backend == "pallas" else backend
 
 
 def _back_end(params: AMParams, state: AMState, baseband, cfg: AMConfig,
               exact: bool = False, backend: str = "kernel"):
-    """AGC -> AmpModem -> de-emphasis at the pcm rate, through the fused
-    front kernel (cuda/am_backend_scan.am_backend_chunked)."""
-    _check_back_end(exact, backend)
+    """AGC -> AmpModem -> de-emphasis at the pcm rate: through the fused
+    front kernel (cuda/am_backend_scan.am_backend_chunked), or with
+    backend='xla' through the separate AGC and carrier-PLL scans (chunked,
+    or exact with exact=True) and two blocked first-order scans."""
+    backend = _check_back_end(exact, backend)
     # warmup derived from the loops in the chunked scan (kernels/warmup.py)
     warmup = kwarm.warmup_for(
         agc_alpha=cfg.agc_bandwidth,
         pll_bw=kam.PLL_BW if cfg.carrier else None,
         squelch_timeout=cfg.squelch_timeout if cfg.squelch else 0)
     de_b0, de_a = iirdes.deemphasis_coeffs(cfg.pcm_rate)
-    p = kab.make_params(params.agc, params.mod, de_b0, de_a,
-                        carrier=cfg.carrier)
-    st = kab.AmBackendState(agc=state.agc, pll=state.am.pll,
-                            dc=state.am.dc, deemph=state.deemph)
-    st, (pcm, modes) = am_backend_chunked(
-        p, st, baseband, kwarm.chunk_for(warmup), warmup=warmup)
-    am = kam.AmpDemodState(pll=st.pll, dc=st.dc, c2r=state.am.c2r)
-    return st.agc, am, st.deemph, pcm, modes
+    if backend == "kernel":
+        p = kab.make_params(params.agc, params.mod, de_b0, de_a,
+                            carrier=cfg.carrier)
+        st = kab.AmBackendState(agc=state.agc, pll=state.am.pll,
+                                dc=state.am.dc, deemph=state.deemph)
+        st, (pcm, modes) = am_backend_chunked(
+            p, st, baseband, kwarm.chunk_for(warmup), warmup=warmup)
+        am = kam.AmpDemodState(pll=st.pll, dc=st.dc, c2r=state.am.c2r)
+        return st.agc, am, st.deemph, pcm, modes
+    agc_st = lanes.one_stream(state.agc)
+    if exact:
+        agc_st, (z, modes) = agc_scan.agc_exact(params.agc, agc_st, baseband[None])
+    else:
+        agc_st, (z, modes) = agc_scan.agc_chunked(
+            params.agc, agc_st, baseband[None], kwarm.chunk_for(warmup), warmup)
+    am, audio = kam.ampdemod_apply(state.am, z[0], params.h_hilb, cfg.modulation,
+                                   "dsb", cfg.carrier, exact_pll=exact)
+    deemph, pcm = first_order.first_order_apply_blocked(de_b0, de_a, state.deemph, audio)
+    return lanes.first_stream(agc_st), am, deemph, pcm, modes[0]
+
+
+def _metrics(agc_state, am_state, modes, device) -> BlockMetrics:
+    return BlockMetrics(
+        rssi=kmet.rssi_db(agc_state.g),
+        squelch_modes=modes,
+        pll_freq=am_state.pll.freq,
+        # block lengths make the output count integral, so the carried
+        # fractional credit is 0 by construction
+        resamp_credit=torch.zeros((), dtype=torch.float32, device=device),
+    )
+
+
+def am_step_composed(params: AMParams, state: AMState, iq, *, cfg: AMConfig,
+                     exact: bool = False, backend: str = "kernel"):
+    """The reference-ordered chain: bandpass (overlap-save FIR) -> resample
+    -> the back end. iq is (N,) complex64. Returns (state, (pcm,
+    BlockMetrics))."""
+    fir_tail, bb = kfir.fir_apply(params.h_bp, state.fir_tail, iq)
+    ntaps = params.H_rs.shape[1]
+    _, y48 = krs.resamp_apply(params.H_rs, state.rs_tail[-ntaps:], bb, params.q,
+                              params.frac)
+    rs_tail = torch.cat([state.rs_tail, bb])[-state.rs_tail.shape[0]:]
+    agc_state, am_state, d_state, pcm, modes = _back_end(
+        params, state, y48, cfg, exact, backend)
+    new_state = AMState(fir_tail, rs_tail, agc_state, am_state, d_state)
+    return new_state, (pcm, _metrics(agc_state, am_state, modes, pcm.device))
 
 
 def am_step_fused(params: AMParams, state: AMState, iq, *, cfg: AMConfig,
@@ -233,15 +292,7 @@ def am_step_fused(params: AMParams, state: AMState, iq, *, cfg: AMConfig,
     agc_state, am_state, d_state, pcm, modes = _back_end(
         params, state, y48, cfg, exact, backend)
     new_state = AMState(state.fir_tail, rs_tail, agc_state, am_state, d_state)
-    metrics = BlockMetrics(
-        rssi=kmet.rssi_db(agc_state.g),
-        squelch_modes=modes,
-        pll_freq=am_state.pll.freq,
-        # block lengths make the output count integral, so the carried
-        # fractional credit is 0 by construction
-        resamp_credit=torch.zeros((), dtype=torch.float32, device=pcm.device),
-    )
-    return new_state, (pcm, metrics)
+    return new_state, (pcm, _metrics(agc_state, am_state, modes, pcm.device))
 
 
 def _param_buffers(params: AMParams):
@@ -266,22 +317,29 @@ class AMReceiver(nn.Module):
     Calling it on one block returns the block's pcm (f32) and leaves the
     block's BlockMetrics in ``metrics``.
 
-    ``plan``, ``exact`` and ``backend`` mirror the JAX receiver; only the
-    fused plan with the fused-kernel back end is ported, and the others
-    raise NotImplementedError naming their ROADMAP.md item."""
+    ``plan`` ('fused' or 'composed'; an irrational rate takes 'composed'),
+    ``exact`` and ``backend`` ('kernel', its JAX name 'pallas', or 'xla')
+    mirror the JAX receiver (the module docstring says what each runs);
+    i16 / u8 input needs the fused plan."""
 
     def __init__(self, cfg: AMConfig = AMConfig(), block_len: int = 1_000_000,
                  input_format: str = "c64", *, plan: str = "fused",
                  exact: bool = False, backend: str = "kernel",
                  device="cuda"):
         super().__init__()
-        if plan != "fused":
-            raise NotImplementedError(f"plan={plan!r} is not ported yet "
-                                      "(ROADMAP.md Queue A #6)")
+        if plan not in PLANS:
+            raise ValueError(f"unknown plan {plan!r} (use 'fused' or 'composed')")
+        if plan == "fused" and _rational(cfg.rate) is None:
+            plan = "composed"
+        if input_format in ("i16", "u8") and plan != "fused":
+            raise ValueError(f"input_format={input_format!r} requires the "
+                             "fused plan")
         self.cfg = cfg
         self.block_len = int(block_len)
         self.input_format = input_format
-        _check_back_end(exact, backend)
+        self.plan = plan
+        self.exact = bool(exact)
+        self.backend = _check_back_end(self.exact, backend)
         params, self.state, self.n_out = build(cfg, self.block_len,
                                                input_format, device=device)
         for name, t in _param_buffers(params):
@@ -314,7 +372,9 @@ class AMReceiver(nn.Module):
                                 f"got shape {tuple(iq.shape)}")
         if iq.shape[0] != self.block_len:
             raise ValueError(f"expected block of {self.block_len} samples")
-        self.state, (pcm, metrics) = am_step_fused(
-            self.params, self.state, iq.contiguous(), cfg=self.cfg)
+        step = am_step_fused if self.plan == "fused" else am_step_composed
+        self.state, (pcm, metrics) = step(self.params, self.state, iq.contiguous(),
+                                          cfg=self.cfg, exact=self.exact,
+                                          backend=self.backend)
         self.metrics = metrics
         return pcm

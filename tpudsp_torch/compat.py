@@ -4,7 +4,7 @@ PyTorch and the card:
     import tpudsp_torch.compat as liquiddsp
 
 exposes the 29 classes + bytes_to_iq of ``tpudsp.compat``, with the same
-names, kwargs and defaults (``ops/__init__.py`` says which are ported).
+names, kwargs and defaults.
 """
 
 from .ops import *  # noqa: F401,F403

@@ -14,17 +14,20 @@ attribute and type name.
 
 from __future__ import annotations
 
+import numpy as np
+
 from .chains.am import AMParams, AMState
 from .kernels.agc import AgcParams, AgcState
 from .kernels.am_backend import FrontState
 from .kernels.ampmodem import AmpDemodState
-from .kernels.hilbert import C2RState
-from .kernels.pll import PllState
+from .kernels.hilbert import C2RState, DecimState, InterpState
+from .kernels.pll import PllState, StereoPilotState
 from .ops.base import to_tensor
 
 # the port's state types, by the name of their JAX twins
-_STATE_TYPES = {T.__name__: T for T in (AgcState, AmpDemodState, C2RState,
-                                        FrontState, PllState)}
+_STATE_TYPES = {T.__name__: T for T in (AgcState, AmpDemodState, C2RState, DecimState,
+                                        FrontState, InterpState, PllState,
+                                        StereoPilotState)}
 
 
 def _t(v, device):
@@ -33,17 +36,23 @@ def _t(v, device):
 
 def op_state_from_jax(state, device="cuda"):
     """A JAX op's ``.state`` -> the port op's state on ``device``: every
-    array leaf becomes a tensor with its dtype kept, every NamedTuple its
-    port twin of the same name and fields, dicts stay dicts and Python
-    scalars (a resampler's ``tau``) stay as they are."""
+    array leaf becomes a tensor with its dtype kept, except uint32 (a
+    32-bit phase, a parity), which becomes int64 with the same value, as
+    the port keeps it (torch cannot add uint32 tensors on the CPU); every
+    NamedTuple becomes its port twin of the same name and fields, tuples
+    and dicts stay tuples and dicts, and Python scalars (a resampler's
+    ``tau``) stay as they are."""
     if isinstance(state, dict):
         return {k: op_state_from_jax(v, device) for k, v in state.items()}
     if isinstance(state, tuple) and hasattr(state, "_fields"):
         T = _STATE_TYPES[type(state).__name__]
-        return T(*(op_state_from_jax(getattr(state, f), device)
-                   for f in T._fields))
+        return T(*(op_state_from_jax(getattr(state, f), device) for f in T._fields))
+    if isinstance(state, tuple):
+        return tuple(op_state_from_jax(v, device) for v in state)
     if isinstance(state, (float, int)):
         return state
+    if getattr(state, "dtype", None) == np.uint32:
+        return to_tensor(np.asarray(state, np.int64), device)
     return _t(state, device)
 
 

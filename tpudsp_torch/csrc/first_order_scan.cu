@@ -12,6 +12,12 @@
 //
 // Entry points:
 //   first_order_scan: one recurrence over each of C rows;
+//   first_order_scan_c64: one recurrence over the re and im parts of an
+//     interleaved complex64 row, run as two rows (b0 and a are real, so the
+//     parts are independent), read and written in place in the complex
+//     layout. The JAX twin, tpudsp/kernels/iir.py:343
+//     first_order_apply_blocked_c64, carries its block entries as plain
+//     complex64; this entry carries them in double-float like the real one;
 //   linear_tail_scan: the DC tracker (b0 = 1 - rho, a = rho), audio = (vr -
 //     dc * use_dc) * inv_mod, then the de-emphasis, over each of C rows.
 //
@@ -53,8 +59,11 @@
 // (an atomic ticket), so a block only waits for a tile that a running or
 // finished block holds. The wrapper keeps the ticket counter and the
 // links in one buffer per stream, made zero once; a flag holds the epoch
-// of the launch that set it, so nothing is cleared between launches. Input and output lines are strided by thread (k =
-// thread + r TB), so they are coalesced. In linear_tail_scan the second
+// of the launch that set it, so nothing is cleared between launches (the
+// double-float steps and the chain are csrc/tile_chain.cuh's, shared with
+// biquad_scan.cu). Input and output lines are strided by thread (k =
+// thread + r TB), so they are coalesced (every other float of a line for
+// the complex64 entry). In linear_tail_scan the second
 // recurrence runs on the audio of the same tile, which the first one has
 // just made, with a chain of entries of its own: neither recurrence's
 // output goes to device memory before the pcm.
@@ -66,9 +75,11 @@
 // SM (~5 us for the two recurrences), and the chains of entries are 12
 // steps each, one flag's round trip through L2 apiece.
 
-#include <cuda_runtime.h>
+#include "tile_chain.cuh"
 
 namespace {
+
+using namespace tile_chain;
 
 constexpr int L = 32;                 // samples per block
 constexpr int TB = 256;               // blocks per tile, one per thread
@@ -79,89 +90,8 @@ constexpr int ROW = L + 1;            // a block's padded row in shared memory
 constexpr int LEVELS = 8;             // log2(TB)
 constexpr int WARPS = THREADS / 32;
 constexpr int POW = L * L + L;        // offset of the block powers in a table
+constexpr int LINK = 4;               // a link: the entry (hi, lo), its flag, padding
 static_assert(1 << LEVELS == TB && THREADS % L == 0 && WARPS <= 32, "tile geometry");
-
-struct Df {
-  float hi, lo;
-};
-
-__device__ __forceinline__ Df two_sum(float a, float b) {
-  const float s = a + b;
-  const float bb = s - a;
-  return {s, (a - (s - bb)) + (b - bb)};
-}
-
-__device__ __forceinline__ void dk_split(float a, float& hi, float& lo) {
-  const float t = 4097.0f * a;   // 2^12 + 1
-  hi = t - (t - a);
-  lo = a - hi;
-}
-
-__device__ __forceinline__ Df two_prod(float a, float b) {
-  const float p = a * b;
-  float ah, al, bh, bl;
-  dk_split(a, ah, al);
-  dk_split(b, bh, bl);
-  return {p, ((ah * bh - p) + ah * bl + al * bh) + al * bl};
-}
-
-__device__ __forceinline__ Df renorm(float hi, float lo) {
-  const float s = hi + lo;
-  return {s, lo - (s - hi)};
-}
-
-__device__ __forceinline__ Df df_add(Df x, Df y) {
-  const Df s = two_sum(x.hi, y.hi);
-  return renorm(s.hi, s.lo + (x.lo + y.lo));
-}
-
-__device__ __forceinline__ Df df_mul(Df x, Df y) {
-  const Df p = two_prod(x.hi, y.hi);
-  return renorm(p.hi, p.lo + (x.hi * y.lo + x.lo * y.hi));
-}
-
-// The entry of a row's tile, passed from the block of the tile before it:
-// the value by plain stores, then the launch's epoch (never 0, a new one
-// each launch on the scratch buffer) as the flag by a release store; the
-// reader acquires the flag, then reads the value past L1.
-struct Link {
-  float hi, lo;
-  int ready, pad;
-};
-
-__device__ __forceinline__ void publish(Link* l, Df e, int epoch) {
-  l->hi = e.hi;
-  l->lo = e.lo;
-  asm volatile("st.release.gpu.global.s32 [%0], %1;" ::"l"(&l->ready), "r"(epoch) : "memory");
-}
-
-__device__ __forceinline__ Df await(const Link* l, int epoch) {
-  for (long long spin = 0;; ++spin) {
-    int ready;
-    asm volatile("ld.acquire.gpu.global.s32 %0, [%1];" : "=r"(ready) : "l"(&l->ready) : "memory");
-    if (ready == epoch) break;
-    if (spin > (1ll << 24)) __trap();   // never: the tile before is on a running block
-    __nanosleep(32);
-  }
-  return {__ldcg(&l->hi), __ldcg(&l->lo)};
-}
-
-// Where a launch's blocks find their tiles and pass their entries on.
-struct Chain {
-  unsigned* counter;   // blocks started on this scratch buffer, ever
-  unsigned base;       // its value when this launch was enqueued
-  int epoch;
-  Link* links;         // per recurrence, row and tile
-
-  // This block's tile, in the order the blocks start: ticket = row *
-  // tiles + tile. A block waits only for a tile that a block which started
-  // before it holds.
-  __device__ __forceinline__ int ticket(int* slot) const {
-    if (threadIdx.x == 0) *slot = static_cast<int>(atomicAdd(counter, 1u) - base);
-    __syncthreads();
-    return *slot;
-  }
-};
 
 // Shared memory of a launch with R recurrences: T transposed per
 // recurrence, the tile's input and prefix rows, the entry values and two
@@ -265,11 +195,20 @@ struct Recurrence {
   // publishes the next tile's, a^(L TB) E_t + P[TB-1], to `next` (unless
   // null), and shares E_t through `slot`. Ends with __syncthreads.
   __device__ __forceinline__ void enter(const Df* s, float* se, Df* slot, Df e0,
-                                        const Link* prev, Link* next, int epoch) const {
+                                        const float* prev, float* next, int epoch) const {
     const int b = threadIdx.x;
     if (b == 0) {
-      const Df e = prev == nullptr ? e0 : await(prev, epoch);
-      if (next != nullptr) publish(next, df_add(df_mul(mtb, e), s[TB - 1]), epoch);
+      Df e = e0;
+      if (prev != nullptr) {
+        float v[2];
+        await(prev, v, epoch);
+        e = {v[0], v[1]};
+      }
+      if (next != nullptr) {
+        const Df t = df_add(df_mul(mtb, e), s[TB - 1]);
+        const float v[2] = {t.hi, t.lo};
+        publish(next, v, epoch);
+      }
       *slot = e;
     }
     __syncthreads();
@@ -284,20 +223,37 @@ struct Recurrence {
 __device__ __forceinline__ int at(int k) { return (k / L) * ROW + k % L; }
 
 // The tile of a row of n that starts at `start` into the padded rows of
-// sx, zeros past the end
+// sx, zeros past the end; sample k of the row at x[k * cs]
 __device__ __forceinline__ void load_tile(const float* __restrict__ x, int n, int start,
-                                          float* sx) {
+                                          float* sx, int cs = 1) {
 #pragma unroll 8
   for (int r = 0; r < PER_THREAD; ++r) {
     const int k = threadIdx.x + r * THREADS;
-    sx[at(k)] = start + k < n ? x[start + k] : 0.0f;
+    sx[at(k)] = start + k < n ? x[static_cast<size_t>(start + k) * cs] : 0.0f;
   }
 }
 
+// The links of recurrence `rec` of a launch over `rows` rows of `tiles`
+// tiles: the one before this tile's (null on a row's first tile) and this
+// tile's own (null on its last)
+struct Links {
+  const float* prev;
+  float* next;
+  __device__ Links(const Chain& chain, int rec, int rows, int row, int tiles, int tile) {
+    float* l = chain.links + (static_cast<size_t>(rec) * rows + row) * tiles * LINK;
+    prev = tile > 0 ? l + (tile - 1) * LINK : nullptr;
+    next = tile + 1 < tiles ? l + tile * LINK : nullptr;
+  }
+};
+
+// Sample k of row `row` of a (rows, n) f32 block at x[row * rs + k * cs]:
+// (rs, cs) = (n, 1) for rows one after the other, (1, 2) for the re and
+// im rows of an interleaved complex64 row.
 __global__ void __launch_bounds__(THREADS)
 first_order_scan_kernel(const float* __restrict__ tab, const float* __restrict__ x,
                         const float* __restrict__ y_prev, float* __restrict__ y,
-                        float* __restrict__ y_last, int n, int tiles, Chain chain) {
+                        float* __restrict__ y_last, int n, int rows, int tiles, int rs, int cs,
+                        Chain chain) {
   using S = Smem<1>;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -310,22 +266,21 @@ first_order_scan_kernel(const float* __restrict__ tab, const float* __restrict__
   const int id = chain.ticket(reinterpret_cast<int*>(smem + S::SLOT + 2));
   const int row = id / tiles;
   const int tile = id % tiles;
-  Link* links = chain.links + static_cast<size_t>(row) * tiles;
-  x += static_cast<size_t>(row) * n;
-  y += static_cast<size_t>(row) * n;
+  const Links links(chain, 0, rows, row, tiles, tile);
+  x += static_cast<size_t>(row) * rs;
+  y += static_cast<size_t>(row) * rs;
   const int start = tile * TILE;
-  load_tile(x, n, start, sx);
+  load_tile(x, n, start, sx, cs);
   __syncthreads();
   rec.prefix(sx, sy);
   __syncthreads();
   rec.scan(sy, buf);
-  rec.enter(buf, se, slot, Df{y_prev[row], 0.0f}, tile > 0 ? links + tile - 1 : nullptr,
-            tile + 1 < tiles ? links + tile : nullptr, chain.epoch);
+  rec.enter(buf, se, slot, Df{y_prev[row], 0.0f}, links.prev, links.next, chain.epoch);
 #pragma unroll 8
   for (int r = 0; r < PER_THREAD; ++r) {
     const int k = threadIdx.x + r * THREADS;
     const float out = sy[at(k)] + rec.power * se[k / L];
-    if (start + k < n) y[start + k] = out;
+    if (start + k < n) y[static_cast<size_t>(start + k) * cs] = out;
     if (start + k == n - 1) y_last[row] = out;
   }
 }
@@ -351,8 +306,8 @@ linear_tail_kernel(const float* __restrict__ tab_dc, const float* __restrict__ t
   const int id = chain.ticket(reinterpret_cast<int*>(smem + S::SLOT + 2));
   const int row = id / tiles;
   const int tile = id % tiles;
-  Link* links_dc = chain.links + static_cast<size_t>(row) * tiles;
-  Link* links_de = links_dc + static_cast<size_t>(rows) * tiles;
+  const Links links_dc(chain, 0, rows, row, tiles, tile);
+  const Links links_de(chain, 1, rows, row, tiles, tile);
   vr += static_cast<size_t>(row) * n;
   pcm += static_cast<size_t>(row) * n;
   const int start = tile * TILE;
@@ -362,8 +317,7 @@ linear_tail_kernel(const float* __restrict__ tab_dc, const float* __restrict__ t
   dc.prefix(sx, sy);
   __syncthreads();
   dc.scan(sy, buf);
-  dc.enter(buf, se, slot, Df{dc0[row], 0.0f}, tile > 0 ? links_dc + tile - 1 : nullptr,
-           tile + 1 < tiles ? links_dc + tile : nullptr, chain.epoch);
+  dc.enter(buf, se, slot, Df{dc0[row], 0.0f}, links_dc.prev, links_dc.next, chain.epoch);
   // audio over this thread's samples, in place of vr; zeros past the end,
   // where the de-emphasis reads its padding
 #pragma unroll 8
@@ -378,8 +332,7 @@ linear_tail_kernel(const float* __restrict__ tab_dc, const float* __restrict__ t
   de.prefix(sx, sy);
   __syncthreads();
   de.scan(sy, buf);
-  de.enter(buf, se, slot, Df{de0[row], 0.0f}, tile > 0 ? links_de + tile - 1 : nullptr,
-           tile + 1 < tiles ? links_de + tile : nullptr, chain.epoch);
+  de.enter(buf, se, slot, Df{de0[row], 0.0f}, links_de.prev, links_de.next, chain.epoch);
 #pragma unroll 8
   for (int r = 0; r < PER_THREAD; ++r) {
     const int k = threadIdx.x + r * THREADS;
@@ -389,10 +342,17 @@ linear_tail_kernel(const float* __restrict__ tab_dc, const float* __restrict__ t
   }
 }
 
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
+int launch_scan(const float* tab, const float* x, const float* y_prev, float* y,
+                float* y_last, int* scratch, int rows, int n, int rs, int cs, int base,
+                int epoch, void* stream) {
+  if (rows <= 0 || n <= 0) return 0;
+  static const cudaError_t set = allow_smem(first_order_scan_kernel, Smem<1>::BYTES);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  const int tiles = (n + TILE - 1) / TILE;
+  first_order_scan_kernel<<<rows * tiles, THREADS, Smem<1>::BYTES,
+                            static_cast<cudaStream_t>(stream)>>>(
+      tab, x, y_prev, y, y_last, n, rows, tiles, rs, cs, make_chain(scratch, base, epoch));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -401,25 +361,24 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 // tables of kernels/iir.block_table (L * L + L + 2 (TB + 1) f32 values: T
 // row-major, a^(i+1), a^(L m) for m = 0..TB as (hi, lo)); x / vr / y / pcm
 // are (rows, n) row-major f32; y_prev, y_last, dc0, de0, dc_last, de_last
-// are (rows,); scal = [use_dc, inv_mod]. scratch is the stream's buffer of
-// cuda/first_order: 4 int32 (the count of blocks ever started on it), then
-// 4 per recurrence, row and tile (tiles = n / 8192 rounded up), zero when
-// made; base is the count when this launch is enqueued and epoch a value
-// no launch on it has used yet (not 0). Each launches on `stream` and
-// returns a cudaError_t (0 on success); neither synchronises.
+// are (rows,); scal = [use_dc, inv_mod]. first_order_scan_c64 takes x and
+// y as one interleaved complex64 row of n samples, run as its re and im
+// rows, with y_prev and y_last complex64 scalars. scratch is the stream's
+// buffer of cuda/launch.chain: 4 int32 (the count of blocks ever started
+// on it), then 4 per recurrence, row and tile (tiles = n / 8192 rounded
+// up), zero when made; base is the count when this launch is enqueued and
+// epoch a value no launch on it has used yet (not 0). Each launches on
+// `stream` and returns a cudaError_t (0 on success); none synchronises.
 extern "C" int first_order_scan(const float* tab, const float* x, const float* y_prev,
                                 float* y, float* y_last, int* scratch, int rows, int n,
                                 int base, int epoch, void* stream) {
-  if (rows <= 0 || n <= 0) return 0;
-  static const cudaError_t set = allow_smem(first_order_scan_kernel, Smem<1>::BYTES);
-  if (set != cudaSuccess) return static_cast<int>(set);
-  const int tiles = (n + TILE - 1) / TILE;
-  const Chain chain{reinterpret_cast<unsigned*>(scratch), static_cast<unsigned>(base), epoch,
-                    reinterpret_cast<Link*>(scratch + 4)};
-  first_order_scan_kernel<<<rows * tiles, THREADS, Smem<1>::BYTES,
-                            static_cast<cudaStream_t>(stream)>>>(tab, x, y_prev, y, y_last, n,
-                                                                 tiles, chain);
-  return static_cast<int>(cudaGetLastError());
+  return launch_scan(tab, x, y_prev, y, y_last, scratch, rows, n, n, 1, base, epoch, stream);
+}
+
+extern "C" int first_order_scan_c64(const float* tab, const float* x, const float* y_prev,
+                                    float* y, float* y_last, int* scratch, int n, int base,
+                                    int epoch, void* stream) {
+  return launch_scan(tab, x, y_prev, y, y_last, scratch, 2, n, 1, 2, base, epoch, stream);
 }
 
 extern "C" int linear_tail_scan(const float* tab_dc, const float* tab_de, const float* scal,
@@ -430,10 +389,9 @@ extern "C" int linear_tail_scan(const float* tab_dc, const float* tab_de, const 
   static const cudaError_t set = allow_smem(linear_tail_kernel, Smem<2>::BYTES);
   if (set != cudaSuccess) return static_cast<int>(set);
   const int tiles = (n + TILE - 1) / TILE;
-  const Chain chain{reinterpret_cast<unsigned*>(scratch), static_cast<unsigned>(base), epoch,
-                    reinterpret_cast<Link*>(scratch + 4)};
   linear_tail_kernel<<<rows * tiles, THREADS, Smem<2>::BYTES,
                        static_cast<cudaStream_t>(stream)>>>(
-      tab_dc, tab_de, scal, vr, dc0, de0, pcm, dc_last, de_last, n, rows, tiles, chain);
+      tab_dc, tab_de, scal, vr, dc0, de0, pcm, dc_last, de_last, n, rows, tiles,
+      make_chain(scratch, base, epoch));
   return static_cast<int>(cudaGetLastError());
 }

@@ -10,9 +10,10 @@ by ``nvcc`` (no PyTorch headers, so a build takes seconds) into
 ``-fmad=false`` keeps every multiply and add rounded on its own, as the
 plain PyTorch versions round them; there is no ``--use_fast_math``.
 A library is rebuilt when its source, or any header in ``csrc/`` (the
-sources share ``scan_step.cuh``), is newer than it. ptxas's report of each
-kernel's registers, shared memory and spills (``-Xptxas -v``) is kept
-beside the library as ``_build/lib<name>.ptxas.txt``.
+sources share ``scan_step.cuh`` and ``tile_chain.cuh``), is newer than
+it. ptxas's report of each kernel's registers, shared memory and spills
+(``-Xptxas -v``) is kept beside the library as
+``_build/lib<name>.ptxas.txt``.
 """
 
 from __future__ import annotations
@@ -47,7 +48,11 @@ SIGNATURES = {
     },
     "first_order_scan": {
         "first_order_scan": [_P] * 6 + [_I] * 4 + [_P],
+        "first_order_scan_c64": [_P] * 6 + [_I] * 3 + [_P],
         "linear_tail_scan": [_P] * 10 + [_I] * 4 + [_P],
+    },
+    "biquad_scan": {
+        "biquad_scan": [_P] * 6 + [_I] * 7 + [_P],
     },
 }
 

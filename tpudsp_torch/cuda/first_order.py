@@ -7,6 +7,9 @@ runs it as one hand-written kernel launch per call:
 
 - ``first_order_apply_blocked``: one recurrence over x (n,) with a 0-d
   y_prev, or over C rows (C, n) with y_prev (C,), in one launch;
+- ``first_order_apply_blocked_c64``: one recurrence over x (n,)
+  complex64 (its re and im parts as two rows, read in place) with a
+  complex64 y_prev, in one launch of the kernel's complex64 entry;
 - ``linear_tail``: the AM receiver's DC tracker, audio line and
   de-emphasis over vr (n,), in one launch.
 
@@ -50,7 +53,8 @@ def _launch(entry: str, tabs, scal, x, carries):
     last = [out[C * (n + k):C * (n + k + 1)] for k in range(len(carries))]
     tiles = -(-n // (kiir.TILE_BLOCKS * kiir.L_BLOCK))
     stream = launch.stream(dev)
-    scratch, base, epoch = _chain(dev, stream, 4 + 4 * len(carries) * C * tiles, C * tiles)
+    scratch, base, epoch = launch.chain(dev, stream, 4 + 4 * len(carries) * C * tiles,
+                                        C * tiles)
     launch.launch(entry, dev, *head, x, *carries, y, *last, scratch, C, n, base, epoch,
                   source=KERNEL, on=stream)
     _launch.launches += 1
@@ -58,30 +62,6 @@ def _launch(entry: str, tabs, scal, x, carries):
 
 
 _launch.launches = 0
-# per (device, stream): [scratch, blocks started on it, last epoch]. The
-# kernel's blocks take their tiles by a counter in the scratch and pass
-# their tiles' entries on through links in it, flagged with the launch's
-# epoch: launches on one stream run in order, so they share the buffer
-# without clearing it.
-_chains: dict = {}
-_EPOCHS = 2 ** 31 - 1
-
-
-def _chain(dev, stream: int, size: int, blocks: int):
-    """The stream's scratch of at least ``size`` int32 for a launch of
-    ``blocks`` blocks, its block count before the launch (as a C int) and
-    the launch's epoch."""
-    st = _chains.get((dev, stream))
-    if st is None or st[0].numel() < size:
-        st = _chains[(dev, stream)] = [torch.zeros(max(size, 4096), dtype=torch.int32,
-                                                   device=dev), 0, 0]
-    if st[2] == _EPOCHS:   # every epoch used: clear the flags, start again
-        st[0].zero_()
-        st[1:] = [0, 0]
-    st[2] += 1
-    base = st[1]
-    st[1] = (base + blocks) % 2 ** 32
-    return st[0], base - 2 ** 32 if base >= 2 ** 31 else base, st[2]
 
 
 def first_order_apply_blocked(b0: float, a: float, y_prev, x):
@@ -97,6 +77,34 @@ def first_order_apply_blocked(b0: float, a: float, y_prev, x):
     y, (last,) = _launch("first_order_scan", (tab,), None, rows,
                          (y_prev.reshape(rows.shape[0]).contiguous(),))
     return last.reshape(x.shape[:-1]), y.reshape(x.shape)
+
+
+def first_order_apply_blocked_c64(b0: float, a: float, y_prev, x):
+    """y[n] = b0 x[n] + a y[n-1] over x (n,) complex64 with a complex64
+    y_prev, as kernels/iir.first_order_apply_blocked_c64 computes it.
+    Returns (y_last, y)."""
+    if x.device.type == "cpu":
+        return kiir.first_order_apply_blocked_c64(b0, a, y_prev, x)
+    dev = x.device
+    launch.on_cuda(KERNEL, dev)
+    n = x.shape[-1]
+    if n == 0:
+        raise ValueError(f"{KERNEL}: a row needs at least one sample")
+    c64 = torch.complex64
+    launch.check(KERNEL, "x", x, c64, (n,), dev)
+    y_prev = torch.as_tensor(y_prev, dtype=c64, device=dev).reshape(()).contiguous()
+    tab = kiir.device_table(float(b0), float(a), dev)
+    out = torch.empty(n + 1, dtype=c64, device=dev)    # y, then y_last
+    tiles = -(-n // (kiir.TILE_BLOCKS * kiir.L_BLOCK))
+    stream = launch.stream(dev)
+    scratch, base, epoch = launch.chain(dev, stream, 4 + 4 * 2 * tiles, 2 * tiles)
+    launch.launch("first_order_scan_c64", dev, tab, x, y_prev, out[:n], out[n:], scratch, n,
+                  base, epoch, source=KERNEL, on=stream)
+    first_order_apply_blocked_c64.launches += 1
+    return out[n], out[:n]
+
+
+first_order_apply_blocked_c64.launches = 0
 
 
 def linear_tail(p, dc0, de0, vr):

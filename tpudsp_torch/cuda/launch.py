@@ -72,3 +72,29 @@ def launch(kernel: str, device, *args, source: str | None = None, on: int | None
             rc = getattr(lib, kernel)(*args, stream_)
     if rc != 0:
         raise RuntimeError(f"{kernel} launch failed: CUDA error {rc}")
+
+
+# per (device, stream): [scratch, blocks started on it, last epoch]. The
+# blocked scans' blocks (csrc/tile_chain.cuh) take their tiles by a
+# counter in the scratch and pass their tiles' entries on through links in
+# it, flagged with the launch's epoch: launches on one stream run in
+# order, so every blocked scan on it shares the buffer without clearing it.
+_chains: dict = {}
+_EPOCHS = 2 ** 31 - 1
+
+
+def chain(dev, stream: int, size: int, blocks: int):
+    """The stream's scratch of at least ``size`` int32 for a launch of
+    ``blocks`` blocks, its block count before the launch (as a C int) and
+    the launch's epoch."""
+    st = _chains.get((dev, stream))
+    if st is None or st[0].numel() < size:
+        st = _chains[(dev, stream)] = [torch.zeros(max(size, 4096), dtype=torch.int32,
+                                                   device=dev), 0, 0]
+    if st[2] == _EPOCHS:   # every epoch used: clear the flags, start again
+        st[0].zero_()
+        st[1:] = [0, 0]
+    st[2] += 1
+    base = st[1]
+    st[1] = (base + blocks) % 2 ** 32
+    return st[0], base - 2 ** 32 if base >= 2 ** 31 else base, st[2]

@@ -1,9 +1,9 @@
 """Host-side FIR filter design (float64 NumPy).
 
 A verbatim copy of the designers of ``tpudsp/design/firdes.py`` that the
-port needs: the Kaiser lowpass, the DC blocker, the Hilbert FIR, the
-polyphase resampler bank with its default parameters, and the FIR
-frequency response. ``tpudsp.design`` cannot be imported here,
+port needs: the Kaiser lowpass, the FM stereo audio lowpass, the DC
+blocker, the Hilbert FIR, the half-band lowpass, the polyphase resampler
+bank with its default parameters, and the FIR frequency response. ``tpudsp.design`` cannot be imported here,
 because ``tpudsp/__init__.py`` imports jax; tests/test_torch_design.py
 holds these copies equal to the originals bit for bit.
 """
@@ -43,6 +43,20 @@ def kaiser_lowpass(n: int, fc: float, As: float = 60.0, mu: float = 0.0) -> np.n
     return (h * w).astype(np.float64)
 
 
+def stereo_audio_lowpass(comp_rate: float, As: float = 60.0) -> np.ndarray:
+    """15 kHz audio-band lowpass for FM stereo matrixing at composite rate
+    ``comp_rate`` Hz: passband to 15 kHz, stopband from 19 kHz (rejects the
+    pilot and every mixing image the pilot-squaring L-R demod leaves above
+    the audio band). Tap count from the Kaiser length estimate for the
+    4 kHz transition; cutoff centered at 17 kHz. Odd length (symmetric,
+    integral group delay)."""
+    if comp_rate <= 2 * 19000.0:
+        raise ValueError("stereo decoding needs a composite rate > 38 kHz")
+    df = 4000.0 / comp_rate
+    n = int(np.ceil((abs(As) - 7.95) / (14.36 * df))) | 1
+    return kaiser_lowpass(n, 17000.0 / comp_rate, As)
+
+
 def dc_blocker(m: int, As: float = 20.0) -> np.ndarray:
     """DC-blocking FIR of length 2*m+1 (liquid firfilt_rrrf_create_dc_blocker
     equivalent, reference firfilter.hpp:43).
@@ -79,6 +93,23 @@ def hilbert_fir(m: int, As: float = 60.0) -> np.ndarray:
     h[c] = 0.0
     w = np.kaiser(n, kaiser_beta(As))
     return h * w
+
+
+def halfband_lowpass(m: int, As: float = 60.0) -> np.ndarray:
+    """Half-band lowpass of length 4*m+1 (cutoff 0.25). Even-offset taps are
+    exactly zero except the center tap (0.5). Used by HilbertTransform's
+    interp/decim paths."""
+    n = 4 * m + 1
+    c = n // 2
+    k = np.arange(n, dtype=np.float64) - c
+    h = 0.5 * np.sinc(0.5 * k)  # zeros at even nonzero offsets by construction
+    w = np.kaiser(n, kaiser_beta(As))
+    h = h * w
+    # force exact half-band structure
+    mask_even = (k % 2 == 0) & (k != 0)
+    h[mask_even] = 0.0
+    h[c] = 0.5
+    return h
 
 
 def resamp_bank(m: int, fc: float, As: float, npfb: int) -> np.ndarray:

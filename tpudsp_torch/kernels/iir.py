@@ -58,6 +58,13 @@ def _df_mul(x, y):
     return _df_renorm(ph, pe + (x[0] * y[1] + x[1] * y[0]))
 
 
+def _split(v):
+    """float64 values as their f32 (hi, lo) split."""
+    v = np.asarray(v, np.float64)
+    hi = v.astype(np.float32)
+    return hi, (v - hi).astype(np.float32)
+
+
 def _split64(v: float):
     """A float64 value as an f32 (hi, lo) pair."""
     hi = np.float32(v)
@@ -79,9 +86,7 @@ def block_table(b0: float, a: float, L: int = L_BLOCK,
     i = np.arange(L, dtype=np.float64)
     E = i[:, None] - i[None, :]
     T = np.where(E >= 0, b0 * a ** np.maximum(E, 0.0), 0.0)
-    P = np.float64(a) ** (L * np.arange(tb + 1, dtype=np.float64))
-    hi = P.astype(np.float32)
-    lo = (P - hi.astype(np.float64)).astype(np.float32)
+    hi, lo = _split(np.float64(a) ** (L * np.arange(tb + 1, dtype=np.float64)))
     return np.concatenate([T.reshape(-1), a ** (i + 1.0),
                            np.stack([hi, lo], 1).reshape(-1)]).astype(np.float32)
 
@@ -206,3 +211,192 @@ def linear_tail(p, dc0, de0, vr):
     de_last, pcm = first_order_apply_blocked(
         p.deemph_b0, p.deemph_a, de0, audio)
     return (dc_last, de_last), pcm
+
+
+def first_order_apply_blocked_c64(b0: float, a: float, y_prev, x):
+    """The complex one-pole y[n] = b0 x[n] + a y[n-1] over x (n,) complex64
+    with a complex64 y_prev: b0 and a are real, so the re and im parts are
+    two rows of ``first_order_apply_blocked`` (the plain version of
+    csrc/first_order_scan.cu's complex64 entry, which reads them in the
+    interleaved layout). The JAX twin (``tpudsp/kernels/iir.py``
+    ``first_order_apply_blocked_c64``) carries its block entries as plain
+    complex64; these carry in double-float. Returns (y_last, y)."""
+    y_prev = torch.as_tensor(y_prev, dtype=torch.complex64, device=x.device)
+    last, y = first_order_apply_blocked(b0, a, torch.view_as_real(y_prev.reshape(1))[0],
+                                        torch.view_as_real(x).T)
+    return torch.complex(last[0], last[1]), torch.complex(y[0], y[1])
+
+
+# --- the compensated SOS cascade (tpudsp/kernels/iir.py sos_apply_df), as
+# csrc/biquad_scan.cu runs it
+#
+# Transposed direct form II per biquad (b0, b1, b2, 1, a1, a2) as the state
+# recurrence v[n] = A v[n-1] + c x[n], A = [[-a1, 1], [-a2, 0]], c = [b1 -
+# a1 b0, b2 - a2 b0], y[n] = b0 x[n] + v[n-1][0], every value of v a
+# double-float pair. Blocks of L samples run from a zero entry; a
+# log-depth scan of the blocks' affine maps v -> A^L v + S[b] within tiles
+# of TILE_BLOCKS blocks and one step from tile to tile give each block's
+# entry; each block then runs again from its entry and writes y.
+
+SOS_HEAD = 16                              # a section's coefficients in its table row
+SOS_WIDTH = SOS_HEAD + 8 * (TILE_BLOCKS + 1)
+
+
+def sos_init(sos: np.ndarray, dtype=torch.float32, device=None):
+    """Zero state for an SOS cascade: (S, 2) per-biquad DF2T state."""
+    return torch.zeros((len(sos), 2), dtype=dtype, device=device)
+
+
+def sos_split_df(sos64: np.ndarray):
+    """float64 SOS (S, 6) -> the double-float scan coefficients, split
+    before any f32 rounding (for low-Fc high-Q designs the f32-rounded a1,
+    a2 move the poles by enough to change the filter): (A_hi, A_lo (S, 2,
+    2), c_hi, c_lo (S, 2), b0 (S,)), f32 numpy arrays, as the JAX
+    package's sos_split_df."""
+    sos64 = np.asarray(sos64, np.float64)
+    b0, b1, b2, _, a1, a2 = sos64.T
+    one, zero = np.ones_like(a1), np.zeros_like(a1)
+    A64 = np.stack([np.stack([-a1, one], -1), np.stack([-a2, zero], -1)], -2)
+    c64 = np.stack([b1 - a1 * b0, b2 - a2 * b0], -1)
+    return (*_split(A64), *_split(c64), b0.astype(np.float32))
+
+
+def sos_table(sos64: np.ndarray) -> np.ndarray:
+    """The host table of an SOS cascade, (S, SOS_WIDTH) f32: per section
+    -a1, -a2, c0, c1 as (hi, lo) pairs and b0 (``sos_split_df``'s values),
+    zeros to SOS_HEAD, then the block powers A^(L m), m = 0..TILE_BLOCKS
+    (L = L_BLOCK), float64 matrix powers split as 8 arrays of
+    TILE_BLOCKS + 1 (entries [0, 0], [0, 1], [1, 0], [1, 1], each hi then
+    lo)."""
+    L, tb = L_BLOCK, TILE_BLOCKS
+    A_hi, A_lo, c_hi, c_lo, b0 = sos_split_df(sos64)
+    sos64 = np.asarray(sos64, np.float64)
+    tab = np.zeros((len(sos64), SOS_WIDTH), np.float32)
+    for s, (_, _, _, _, a1, a2) in enumerate(sos64):
+        tab[s, :9] = [A_hi[s, 0, 0], A_lo[s, 0, 0], A_hi[s, 1, 0], A_lo[s, 1, 0],
+                      c_hi[s, 0], c_lo[s, 0], c_hi[s, 1], c_lo[s, 1], b0[s]]
+        AL = np.linalg.matrix_power(np.array([[-a1, 1.0], [-a2, 0.0]]), L)
+        P = np.empty((tb + 1, 2, 2))
+        P[0] = np.eye(2)
+        for m in range(tb):
+            P[m + 1] = P[m] @ AL
+        hi, lo = _split(P.reshape(tb + 1, 4).T)
+        tab[s, SOS_HEAD:] = np.stack([hi, lo], 1).reshape(-1)
+    return tab
+
+
+def _mv(M, p, q):
+    """M p + q in double-float: M a 2x2 matrix as its entries (a, b, c, d),
+    p and q 2-vectors, each value a (hi, lo) pair."""
+    a, b, c, d = M
+    return (_df_add(_df_add(_df_mul(a, p[0]), _df_mul(b, p[1])), q[0]),
+            _df_add(_df_add(_df_mul(c, p[0]), _df_mul(d, p[1])), q[1]))
+
+
+def _vmap(fn, *vs):
+    """fn over the four tensors of each 2-vector of (hi, lo) pairs."""
+    return tuple(tuple(fn(*parts) for parts in zip(*pairs)) for pairs in zip(*vs))
+
+
+def _biquad_step(co, v, x):
+    """One double-float step v <- A v + c x of a section; co = (-a1, -a2,
+    c0, c1) as (hi, lo) pairs."""
+    m00, m10, c0, c1 = co
+    u0 = _two_prod(c0[0], x)
+    u0 = _df_renorm(u0[0], u0[1] + c0[1] * x)
+    u1 = _two_prod(c1[0], x)
+    u1 = _df_renorm(u1[0], u1[1] + c1[1] * x)
+    return (_df_add(_df_add(_df_mul(m00, v[0]), v[1]), u0),
+            _df_add(_df_mul(m10, v[0]), u1))
+
+
+def _biquad_tile_scan(power, S, run: int = WARP):
+    """``_tile_scan`` for the biquad's block maps: the inclusive scan of the
+    block constants S (a 2-vector of (..., tb) pairs) within each tile,
+    with ``power(m)``, the matrix A^(L m)."""
+    def levels(p, stride):
+        d = 1
+        while d < p[0][0].shape[-1]:
+            q = _vmap(lambda t: t[..., :-d], p)
+            new = _mv(power(d * stride), q, _vmap(lambda t: t[..., d:], p))
+            p = _vmap(lambda t, u: torch.cat([t[..., :d], u], -1), p, new)
+            d *= 2
+        return p
+
+    shape = S[0][0].shape
+    runs = _vmap(lambda t: t.reshape(*shape[:-1], shape[-1] // run, run), S)
+    p = levels(runs, 1)
+    w = levels(_vmap(lambda t: t[..., -1], p), run)
+    lane = torch.arange(1, run + 1, device=S[0][0].device)
+    c = _mv(power(lane), _vmap(lambda t: t[..., :-1, None], w),
+            _vmap(lambda t: t[..., 1:, :], p))
+    return _vmap(lambda t, u: torch.cat([t[..., :1, :], u], -2).reshape(shape), p, c)
+
+
+def _biquad_rows(tab, v0, X):
+    """One section over the rows X (R, n) f32 from the f32 states v0 (2,
+    R), as the kernel runs it. Returns (v_last (2, R), y (R, n))."""
+    L, tb = L_BLOCK, TILE_BLOCKS
+    R, n = X.shape
+    B = -(-n // L)
+    nt = -(-B // tb)
+    Xb = torch.nn.functional.pad(X, (0, nt * tb * L - n)).reshape(R, nt * tb, L)
+    co = tuple((tab[2 * k], tab[2 * k + 1]) for k in range(4))
+    b0 = tab[8]
+    pw = tab[SOS_HEAD:].reshape(8, tb + 1)
+
+    def power(m):
+        return tuple((pw[2 * e, m], pw[2 * e + 1, m]) for e in range(4))
+
+    zero = torch.zeros_like(Xb[..., 0])
+    v = ((zero, zero), (zero, zero))
+    for i in range(L):                  # each block from a zero entry
+        v = _biquad_step(co, v, Xb[..., i])
+    P = _biquad_tile_scan(power, _vmap(lambda t: t.reshape(R, nt, tb), v))
+    # the entries, tile by tile from v0
+    e = ((v0[0], torch.zeros_like(v0[0])), (v0[1], torch.zeros_like(v0[1])))
+    E = _vmap(lambda t: torch.empty_like(t), P)
+    mb = power(torch.arange(1, tb, device=X.device))
+    for t in range(nt):
+        Et = _vmap(lambda u: u[:, t], E)
+        for (dst_h, dst_l), (h, l) in zip(Et, e):
+            dst_h[:, 0], dst_l[:, 0] = h, l
+        rest = _mv(mb, _vmap(lambda u: u[:, None], e), _vmap(lambda u: u[:, t, :-1], P))
+        for (dst_h, dst_l), (h, l) in zip(Et, rest):
+            dst_h[:, 1:], dst_l[:, 1:] = h, l
+        e = _mv(power(tb), e, _vmap(lambda u: u[:, t, -1], P))
+    v = _vmap(lambda t: t.reshape(R, nt * tb), E)
+    Y = torch.empty_like(Xb)
+    V = Xb.new_empty((2, R, nt * tb, L))
+    for i in range(L):                  # each block again from its entry
+        xi = Xb[..., i]
+        prev = v[0][0] + v[0][1]
+        v = _biquad_step(co, v, xi)
+        Y[..., i] = b0 * xi + prev
+        V[0, ..., i] = v[0][0] + v[0][1]
+        V[1, ..., i] = v[1][0] + v[1][1]
+    return V.reshape(2, R, -1)[..., n - 1], Y.reshape(R, -1)[:, :n]
+
+
+def sos_apply_df(tab, state, x):
+    """The compensated SOS cascade over a 1-D block, as csrc/biquad_scan.cu
+    runs it (its plain version: the same f32 operations in the same order).
+    tab: ``sos_table``'s (S, SOS_WIDTH) f32 table as a tensor; state: (S,
+    2) f32, or complex64 for complex x; x: (N,) f32 or complex64 (its re
+    and im parts run as two rows). Sections run one after the other.
+    Returns (new_state, y); the state carried from call to call is f32
+    (hi + lo), as in the JAX package."""
+    if x.shape[0] == 0:
+        return state, x
+    cplx = x.is_complex()
+    X = torch.view_as_real(x).T if cplx else x[None]
+    # (S, 2, R): R = 1 real row, or the re and im rows of a complex state
+    V = torch.view_as_real(state) if cplx else state[..., None]
+    last = []
+    for s in range(tab.shape[0]):
+        v, X = _biquad_rows(tab[s], V[s], X)
+        last.append(v)
+    V = torch.stack(last)
+    if cplx:
+        return torch.complex(V[..., 0], V[..., 1]), torch.complex(X[0], X[1])
+    return V[..., 0], X[0]

@@ -1,9 +1,7 @@
 """Reference-compatible op surface (port of ``tpudsp/ops``): the 29
 classes + 1 free function of the reference's module, with the JAX
 package's names, kwargs and defaults. Every op runs on the card unless it
-is built with ``device=`` (``ops/base.DEFAULT_DEVICE``). Classes the port
-has not reached yet raise NotImplementedError when built, naming their
-ROADMAP.md item.
+is built with ``device=`` (``ops/base.DEFAULT_DEVICE``).
 """
 
 from .agc_op import AGC

@@ -101,14 +101,3 @@ class StatefulOp:
         self._state = tree_map(lambda v: to_tensor(v, self._device), state)
         return self
 
-
-def not_ported(name: str, item: str):
-    """A stand-in for a reference class the port has not reached yet: its
-    construction raises NotImplementedError naming its ROADMAP.md item."""
-
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(f"{name} is not ported to tpudsp_torch yet "
-                                  f"(ROADMAP.md {item})")
-
-    return type(name, (), {"__init__": __init__, "__doc__":
-                           f"Not ported yet: ROADMAP.md {item}."})

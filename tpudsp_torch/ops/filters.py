@@ -8,9 +8,9 @@ RealDCBlocker, RealKaiserBessel.
 LTI IIR filters run as their truncated impulse response (TIR) through
 ``kernels/fir.fir_apply`` -- the JAX package's default mode. The recurrence
 mode (``mode="scan"``, and an ``"auto"`` design whose impulse response does
-not decay within TIR_MAX_TAPS taps) needs the double-float SOS cascade
-``sos_apply_df`` (``tpudsp/kernels/iir.py:212``), which is not ported yet:
-such a filter raises NotImplementedError naming its ROADMAP.md item.
+not decay within TIR_MAX_TAPS taps) runs the double-float SOS cascade
+``cuda/biquad_scan.sos_apply_df``: one launch of the CUDA kernel
+``csrc/biquad_scan.cu`` a call on the card, its plain version on the CPU.
 
 DeemphasisFilter: the JAX op runs the plain f32 associative scan
 ``first_order_apply`` with f32-rounded coefficients; the port runs its
@@ -26,14 +26,14 @@ import numpy as np
 import torch
 
 from ..design import firdes, iirdes
-from ..cuda import first_order
+from ..cuda import biquad_scan, first_order
 from ..kernels import fir as kfir
+from ..kernels import iir as kiir
 from .base import StatefulOp, as_c64, as_f32, resolve_device, to_numpy
 
 # truncated-IR execution is used when the impulse response fits in this many
 # taps, as in the JAX package
 TIR_MAX_TAPS = 65536
-SCAN_ITEM = "Queue A #7 (the IIR scan mode, kernels/iir.sos_apply_df)"
 
 
 def _f32(v, device):
@@ -56,20 +56,22 @@ class _SosFilterBase(StatefulOp):
                 self._tir_taps = _f32(h, self._device)
         if mode == "tir" and self._tir_taps is None:
             raise ValueError("impulse response does not decay within TIR budget")
-        if self._tir_taps is None:
-            raise NotImplementedError(
-                f"mode={mode!r}: this filter needs the IIR recurrence, not "
-                f"ported to tpudsp_torch yet (ROADMAP.md {SCAN_ITEM})")
+        # the recurrence runs the double-float cascade on the float64 design
+        self._sos_table = None if self._tir_taps is not None else torch.from_numpy(
+            kiir.sos_table(self._sos)).to(self._device)
         self.reset()
 
     @property
     def mode(self) -> str:
-        return "tir"
+        return "tir" if self._tir_taps is not None else "scan"
 
     def reset(self):
         """Clear filter memory (liquid iirfilt_*_reset)."""
-        self._state = kfir.fir_init(self._tir_taps.shape[0], self._dtype,
-                                    self._device)
+        if self._tir_taps is not None:
+            self._state = kfir.fir_init(self._tir_taps.shape[0], self._dtype,
+                                        self._device)
+        else:
+            self._state = kiir.sos_init(self._sos, self._dtype, self._device)
 
     def freqresponse(self, f):
         """H(e^{j2 pi f}) at f in cycles/sample (liquid iirfilt_*_freqresponse)."""
@@ -83,7 +85,10 @@ class _SosFilterBase(StatefulOp):
 
     def __call__(self, inp):
         x = (as_c64 if self._complex else as_f32)(inp, self._device)
-        self._state, y = kfir.fir_apply(self._tir_taps, self._state, x)
+        if self._tir_taps is not None:
+            self._state, y = kfir.fir_apply(self._tir_taps, self._state, x)
+        else:
+            self._state, y = biquad_scan.sos_apply_df(self._sos_table, self._state, x)
         return to_numpy(y)
 
 
