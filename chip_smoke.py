@@ -50,7 +50,8 @@ fails:
                 8193 and 16389 samples, also 3 rows), and linear_tail_scan
                 (the AM receiver's whole tail) at 96,000 samples with and
                 without DC tracking and at 16389;
-              first_order_scan_c64 (the complex64 entry): FMStereo's
+              first_order_scan_c64 (first_order_scan over a complex64
+                row's re and im parts as two rows): FMStereo's
                 pilot smoother (rho = 0.999) at 2^18 samples, lengths 7,
                 32, 33 and the tile edges, two chained calls, and against
                 float64 (>= 130 dB);
@@ -60,6 +61,10 @@ fails:
                 the tile edges from random carried states (complex and
                 real rows), three chained calls, and both designs against
                 float64 at 65,536 samples (>= 120 dB);
+              the stream's shared scratch: three rounds of biquad_scan,
+                the complex64 call, real rows and linear_tail_scan back to
+                back from denormal states, bit for bit, every flag slot
+                holding 0 or an epoch used on the stream;
               halo_async: the async-halo front end on a 1x1 mesh at the AM
                 shape (a 4M-sample c64 shard, the AM design's 3 phases of
                 24 x 125 offset-folded real taps, also with an nj that 8
@@ -67,7 +72,7 @@ fails:
                 taps decimating by 10, 4M samples of c64, int16 and uint8,
                 and a 1970-sample uint8 shard whose two launches are each
                 shorter than a tile), each with a random carried tail.
-              am_front_scan, agc_scan, first_order_scan (both entries)
+              am_front_scan, agc_scan, first_order_scan (rows and complex)
               and biquad_scan must equal their plain versions bit for bit
               (outputs, modes and final states); pll_scan must reach 90 dB SNR with close final
               states (and equal, with --parent, the parent's kernel bit for
@@ -177,9 +182,12 @@ OPS_AGC, OPS_PLL = 25, 20
 # within-block sum's 32 multiplies and 32 adds
 OPS_FIRST_ORDER = 64
 TILE_FO = 256 * 32          # samples of one tile of first_order_scan's carry scan
-# f32 operations per sample, row and section of biquad_scan: its two
-# double-float steps (125 each) and the output (3)
-OPS_BIQUAD = 253
+# f32 operations per sample, row and section that the SOS cascade needs:
+# one double-float step (125 as biquad_scan.cu writes it, 101 with the
+# splits of the constant coefficients made on the host and those of x and
+# v0.hi made once) and the output (3); the kernel's second pass over each
+# block is its algorithm's cost, not the function's
+OPS_BIQUAD = 104
 N_SURFACE = 1 << 18         # the classes' block: the README's callback
 N_ORACLE = 65_536           # the prefix held against the float64 oracles
 DC_RHO = 0.9995             # the AM receiver's DC tracker pole
@@ -230,7 +238,7 @@ def oracle_chain(iq, sos, H, rate, agc_bw, agc_scale, modulation, pcm_rate):
     recurrence as its SosFilterOracle, in float64."""
     import scipy.signal as sig
     from tpudsp_torch.design import iirdes
-    lo = liquid_oracle()
+    lo = oracle_module("liquid_oracle")
     bb = sig.sosfilt(sos, np.asarray(iq, np.complex128))
     agc = lo.AgcOracle(bandwidth=agc_bw)
     agc.scale = agc_scale
@@ -802,6 +810,7 @@ def phase_kernel():
     kernel_first_order()
     kernel_first_order_c64()
     kernel_biquad()
+    kernel_shared_chain()
     # halo_async at the AM shape (its main path) and the bank shape
     _record("halo_async", *_compare_halo("halo_async AM shape C=3 Kc=24 D1=125 4M c64 real taps",
                                          halo_am_case(7)))
@@ -1022,17 +1031,17 @@ def phase_compat():
 # the compensated SOS cascade, the complex one-pole, the AM receiver's other
 # options and the rest of the class surface
 
-def liquid_oracle():
-    """tests/oracle/liquid_oracle.py (numpy only), loaded by path: an
+def oracle_module(name: str):
+    """tests/oracle/<name>.py (numpy and scipy only), loaded by path: an
     installed package named "tests" may shadow the repo's."""
     import importlib.util
-    if "liquid_oracle" not in sys.modules:
+    if name not in sys.modules:
         spec = importlib.util.spec_from_file_location(
-            "liquid_oracle", ROOT / "tests" / "oracle" / "liquid_oracle.py")
+            name, ROOT / "tests" / "oracle" / f"{name}.py")
         mod = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(mod)
-        sys.modules["liquid_oracle"] = mod
-    return sys.modules["liquid_oracle"]
+        sys.modules[name] = mod
+    return sys.modules[name]
 
 
 def noise_c64(n: int, seed: int, scale: float = 0.5):
@@ -1106,7 +1115,7 @@ def kernel_biquad():
     _compare_exact("biquad_scan cheby2 order 8 c64 three chained calls", kout, rout)
     # against float64: the hard config (a plain f32 scan floors near 60 dB
     # there) and BroadcastAM's near-unit-pole DC block
-    lo = liquid_oracle()
+    lo = oracle_module("liquid_oracle")
     for name, design, xs in (("cheby2 order 8 c64", hard, signal(N_ORACLE, True, 41)),
                              ("DC block f32", dc_block_sos(),
                               signal(N_ORACLE, False, 42) + 1.0)):
@@ -1119,7 +1128,7 @@ def kernel_biquad():
 
 
 def kernel_first_order_c64():
-    """first_order_scan's complex64 entry, bit for bit against its plain
+    """first_order_scan over a complex64 row, bit for bit against its plain
     version (kernels/iir.first_order_apply_blocked_c64) at the main shape
     (FMStereo's pilot smoother on a 2^18-sample block), at a block and the
     tile edges and over chained calls; and against float64."""
@@ -1151,6 +1160,52 @@ def kernel_first_order_c64():
     log(f"kernel[first_order_scan_c64 n={N_ORACLE}]: vs float64 {s:.2f} dB (bar 130)")
     if not s >= 130.0:
         raise AssertionError("first_order_scan_c64 is less accurate than its bar")
+
+
+def kernel_shared_chain():
+    """The blocked scans share one scratch buffer per stream (cuda/launch.
+    chain), each kernel's links LINK slots wide with the flag last. Three
+    rounds of biquad_scan, first_order_scan's complex64 call, its real rows
+    and linear_tail_scan, back to back on the stream over four tiles, from
+    denormal states and inputs a few ulps of the least denormal wide (what
+    a state decaying through silence leaves in the links, values whose bits
+    read as small integers, like the epochs): each bit for bit against its
+    plain version, and after each round every flag slot of the buffer holds
+    0 or an epoch this stream has used, never a value."""
+    import torch
+    from tpudsp_torch.cuda import biquad_scan as bq
+    from tpudsp_torch.cuda import first_order as fo
+    from tpudsp_torch.cuda import launch
+    from tpudsp_torch.kernels import iir as kiir
+    n = 3 * TILE_FO + 5
+    sos = clowpass_scan_sos()
+    tab = torch.from_numpy(kiir.sos_table(sos)).to(DEV)
+    tiny = lambda x: torch.from_numpy(np.asarray(x * np.float32(1e-43))).to(DEV)   # 71 ulps
+    rho = (1.0 - 0.999, 0.999)
+    p = tail_params(True)
+    for r in range(3):
+        x = tiny(noise_c64(n, 70 + r))
+        xr = tiny(noise_c64(3 * n, 73 + r).real.reshape(3, n).copy())
+        v0 = tiny(noise_c64(2 * len(sos), 76 + r).reshape(len(sos), 2))
+        y0 = tiny(noise_c64(1, 79 + r)[0])
+        c0 = tiny(noise_c64(3, 82 + r).real.copy())
+        t0, t1 = tiny(np.float32(1.0)), tiny(np.float32(-2.0))
+        k = [bq.sos_apply_df(tab, v0, x), fo.first_order_apply_blocked_c64(*rho, y0, x),
+             fo.first_order_apply_blocked(*rho, c0, xr), _flat(fo.linear_tail(p, t0, t1, xr[0]))]
+        ref = [kiir.sos_apply_df(tab, v0, x), kiir.first_order_apply_blocked_c64(*rho, y0, x),
+               kiir.first_order_apply_blocked(*rho, c0, xr),
+               _flat(kiir.linear_tail(p, t0, t1, xr[0]))]
+        for name, kk, rr in zip(("biquad_scan", "first_order_scan c64", "first_order_scan rows",
+                                 "linear_tail_scan"), k, ref):
+            _compare_exact(f"shared scratch round {r}: {name} n={n} denormal", kk, rr)
+        torch.cuda.synchronize()
+        dev = x.device
+        scratch, _, epoch = launch._chains[(dev, launch.stream(dev))]
+        flags = scratch[4 + launch.LINK - 1::launch.LINK].cpu()
+        if not bool(((flags >= 0) & (flags <= epoch)).all()):
+            raise AssertionError(f"shared scratch round {r}: a flag slot holds a value "
+                                 f"(flags {flags.min()}..{flags.max()}, last epoch {epoch})")
+        log(f"kernel[shared scratch round {r}]: {flags.numel()} flag slots in 0..{epoch}")
 
 
 COUNTED = ("am_front_scan", "agc_scan", "pll_scan", "first_order_scan",
@@ -1199,7 +1254,7 @@ def _med(times):
 # block at AMConfig(): the chunked AGC's 25 lanes need no tail; the chunked
 # PLL's 47 lanes of 2048 have a padded last one, re-run exactly
 AM_OPTIONS = {
-    "exact": (dict(exact=True, backend="xla"),
+    "exact": (dict(exact=True),
               {"agc_scan": 1, "pll_scan": 1, "first_order_scan": 2}),
     "xla": (dict(backend="xla"), {"agc_scan": 1, "pll_scan": 2, "first_order_scan": 2}),
     "composed": (dict(plan="composed"), {"am_front_scan": 1, "first_order_scan": 1}),
@@ -1292,7 +1347,7 @@ def broadcast_am_f64(x, slen: int = 25):
     the carrier PLL runs sample by sample on liquid's 32-bit NCO; the DC
     block is SosFilterOracle's recurrence."""
     from tpudsp_torch.design import firdes
-    lo = liquid_oracle()
+    lo = oracle_module("liquid_oracle")
     x = np.asarray(x, np.complex128)
     n = len(x)
     x0 = np.convolve(x, firdes.kaiser_lowpass(2 * slen + 1, 0.01, 40.0))[:n]
@@ -1307,15 +1362,6 @@ def broadcast_am_f64(x, slen: int = 25):
     return lo.SosFilterOracle(dc_block_sos())((x1 * np.exp(-1j * theta)).real).real
 
 
-def stereo_composite(n: int, la, ra, iq_rate: float = 600_000.0, scale: float = 0.04):
-    """tests/test_oracle_composite.py's FM stereo IQ (kd = 4)."""
-    t = np.arange(n)
-    f_p = 19000.0 / iq_rate
-    comp = ((la + ra) / 2 + 0.1 * np.cos(2 * np.pi * f_p * t)
-            + ((la - ra) / 2) * np.cos(2 * np.pi * 2 * f_p * t)) * scale
-    return np.exp(1j * 2 * np.pi * 4.0 * np.cumsum(comp)).astype(np.complex64)
-
-
 def fm_stereo_mono_f64(x, iq_rate: float = 600_000.0, pcm_rate: float = 48_000.0):
     """The left channel of tests/oracle/composite_oracle.FMStereoOracle
     (pll_bw 1e-5, warm start: the reference topology's pilot loop locked)
@@ -1325,7 +1371,7 @@ def fm_stereo_mono_f64(x, iq_rate: float = 600_000.0, pcm_rate: float = 48_000.0
     block (both LTI or block-invariant)."""
     import scipy.signal as sig
     from tpudsp_torch.design import firdes, iirdes
-    lo = liquid_oracle()
+    lo = oracle_module("liquid_oracle")
     x = np.asarray(x, np.complex128)
     s = np.angle(np.conj(np.concatenate([[1.0], x[:-1]])) * x) / (2 * np.pi * 4.0)
     nco = lo.NcoOracle()
@@ -1345,40 +1391,6 @@ def fm_stereo_mono_f64(x, iq_rate: float = 600_000.0, pcm_rate: float = 48_000.0
     rate = pcm_rate / iq_rate
     m, fc, As, npfb = firdes.default_resamp_params(rate)
     return lo.ResampOracle(firdes.resamp_bank(m, fc, As, npfb), rate)(left)
-
-
-def mono_agreement(y_ref, y, fs: float = 48_000.0):
-    """tests/test_oracle_composite.py's mono-path comparison: a 10 kHz
-    audio lowpass on both, the second half, fractional-delay alignment by
-    8x resampling and cross-correlation; returns (gain, SNR in dB)."""
-    import scipy.signal as sig
-    h = sig.firwin(201, 10000.0, fs=fs)
-    a = np.convolve(y_ref, h, mode="valid")
-    b = np.convolve(np.asarray(y, np.float64), h, mode="valid")
-    m = min(len(a), len(b))
-    a, b = a[m // 2:m], b[m // 2:m]
-    up = 8
-    au, bu = sig.resample(a, up * len(a)), sig.resample(b, up * len(b))
-    lag = np.argmax(np.correlate(bu, au, mode="full")) - (len(au) - 1)
-    if lag >= 0:
-        bu = bu[lag:]
-    else:
-        au = au[-lag:]
-    m = min(len(au), len(bu)) - up * 8
-    au, bu = au[:m], bu[:m]
-    g = np.dot(au, bu) / np.dot(au, au)
-    return g, snr_db(g * au, bu)
-
-
-def separation_db(y, f_l: float, f_r: float, fs: float = 48_000.0):
-    """L / R separation of tones f_l, f_r over the last quarter of y (N, 2)."""
-    L, R = y[3 * len(y) // 4:, 0], y[3 * len(y) // 4:, 1]
-    w = np.hanning(len(L))
-    fl = np.fft.rfftfreq(len(L), 1 / fs)
-    sL, sR = np.abs(np.fft.rfft(L * w)), np.abs(np.fft.rfft(R * w))
-    il, ir = np.argmin(np.abs(fl - f_l)), np.argmin(np.abs(fl - f_r))
-    pk = lambda s, i: np.max(s[i - 3:i + 4])
-    return 20 * np.log10(pk(sL, il) / pk(sL, ir)), 20 * np.log10(pk(sR, ir) / pk(sR, il))
 
 
 def hilbert_f64(h, x, interp: bool):
@@ -1401,7 +1413,7 @@ def phase_surface():
     bars, its launches counted, and its call timed (median of 5)."""
     import tpudsp_torch.compat as liquiddsp
     from tpudsp_torch.design import firdes
-    lo = liquid_oracle()
+    lo = oracle_module("liquid_oracle")
     nb = 6                                    # blocks: one warm-up, five timed
     times = {}
 
@@ -1433,18 +1445,19 @@ def phase_surface():
     # the mono path against the reference topology on a 65,536 prefix
     n = nb * N_SURFACE
     tone = lambda fq: np.sin(2 * np.pi * fq / 600_000.0 * np.arange(n))
-    xs = stereo_composite(n, tone(800.0), tone(2300.0))
+    fm = oracle_module("fm_stereo_checks")
+    xs = fm.stereo_composite(n, tone(800.0), tone(2300.0))
     op = liquiddsp.FMStereo(600_000.0, 48_000.0)
     ys = np.concatenate(_run_path("FMStereo", op, blocks(xs, N_SURFACE),
                                   {"first_order_scan_c64": 2, "first_order_scan": 1}))
-    sep = separation_db(ys, 800.0, 2300.0)
+    sep = fm.separation_db(ys, 800.0, 2300.0)
     log(f"surface: FMStereo L/R separation {sep[0]:.2f} / {sep[1]:.2f} dB (bar 60), "
         f"{ys.shape} pcm")
     if not (ys.shape[1] == 2 and min(sep) >= 60.0):
         raise AssertionError("surface: FMStereo does not separate")
     la = tone(1000.0)[:N_ORACLE] + 0.5 * tone(6300.0)[:N_ORACLE]
-    xm = stereo_composite(N_ORACLE, la, la)
-    g, s = mono_agreement(fm_stereo_mono_f64(xm), liquiddsp.FMStereo(600_000.0, 48_000.0)(xm)[:, 0])
+    xm = fm.stereo_composite(N_ORACLE, la, la)
+    g, s = fm.mono_agreement(fm_stereo_mono_f64(xm), liquiddsp.FMStereo(600_000.0, 48_000.0)(xm)[:, 0])
     log(f"surface: FMStereo mono path vs reference-topology oracle n={N_ORACLE}: "
         f"{s:.2f} dB (bar 30), gain {g:.4f}")
     if not (0.9 < g < 1.1 and s >= 30.0):
@@ -1822,7 +1835,7 @@ def phase_timing():
     rows = 2 if bx.is_complex() else 1
     bound("biquad_scan", bx.numel() * bx.element_size() * 2,
           bx.shape[0] * rows * tab.shape[0] * OPS_BIQUAD)
-    # the complex64 entry at FMStereo's pilot smoother shape (2^18 samples)
+    # the complex64 call at FMStereo's pilot smoother shape (2^18 samples)
     ab, cyp, cx = results["inputs"]["c64"]
     k["first_order_scan_c64"]["ms"] = _cuda_ms(
         lambda: first_order.first_order_apply_blocked_c64(*ab, cyp, cx), 20)

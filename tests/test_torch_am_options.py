@@ -7,8 +7,8 @@ options, over two consecutive 250k-sample blocks (n_out = 6000 per block):
   (interpret mode), whose linear tail is the plain f32 associative scan:
   >= 80 dB, the bar of the fused plan's pin against it (measured 102.6
   dB);
-- ``exact=True`` and ``backend='xla'`` against tpudsp's XLA back end with
-  the same ``exact``: >= 100 dB (measured 112.9 dB each);
+- ``exact=True`` (no backend: the XLA back end on both sides) and
+  ``backend='xla'`` against tpudsp's XLA back end with the same ``exact``: >= 100 dB (measured 112.9 dB each);
 - every option >= 100 dB against the float64 oracle chain (measured
   119.7-120.4 dB);
 - fused equals composed at exact=True, as tpudsp's own
@@ -16,7 +16,8 @@ options, over two consecutive 250k-sample blocks (n_out = 6000 per block):
 - a rate with no small rational form takes the composed plan, as in
   tpudsp;
 - the back-end rules: 'pallas' names the fused-kernel back end, which
-  refuses exact=True, and raw wire formats need the fused plan.
+  refuses exact=True; exact=True with no backend takes 'xla', as tpudsp's
+  default does; raw wire formats need the fused plan.
 """
 
 import numpy as np
@@ -33,7 +34,7 @@ BLOCK = N // 2
 SETTLE = N * 48 // 2_000 // 2    # the second half of the pcm
 OPTIONS = {
     "composed": (dict(plan="composed"), dict(plan="composed", backend="pallas"), 80.0),
-    "exact": (dict(exact=True, backend="xla"), dict(exact=True, backend="xla"), 100.0),
+    "exact": (dict(exact=True), dict(exact=True), 100.0),
     "xla": (dict(backend="xla"), dict(backend="xla"), 100.0),
 }
 
@@ -109,6 +110,11 @@ def test_back_end_rules():
     y_kernel = tam.AMReceiver(cfg, 50_000, device="cpu")(iq)
     y_pallas = tam.AMReceiver(cfg, 50_000, device="cpu", backend="pallas")(iq)
     assert torch.equal(y_kernel, y_pallas)
+    # exact=True with no backend is the XLA back end, as tpudsp's default
+    rx_exact = tam.AMReceiver(cfg, 50_000, device="cpu", exact=True)
+    assert rx_exact.backend == "xla"
+    y_exact = tam.AMReceiver(cfg, 50_000, device="cpu", exact=True, backend="xla")(iq)
+    assert torch.equal(rx_exact(iq), y_exact)
     for backend in ("kernel", "pallas"):
         with pytest.raises(ValueError, match="exact=False"):
             tam.AMReceiver(cfg, 50_000, device="cpu", exact=True, backend=backend)

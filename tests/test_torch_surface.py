@@ -21,11 +21,11 @@ NCO 149.0 dB, FreqDem 152.6, SSBDemod 137.4, BroadcastAM 134.7, FMStereo
 
 import numpy as np
 import pytest
-import scipy.signal as sig
 
 import tpudsp.compat as jdsp
 import tpudsp_torch.compat as tdsp
 from tests.oracle.composite_oracle import BroadcastAMOracle, FMStereoOracle
+from tests.oracle.fm_stereo_checks import mono_agreement, separation_db, stereo_composite
 from tests.oracle.liquid_oracle import NcoOracle
 from tests.util import noise, snr_db
 from tpudsp_torch import convert
@@ -48,15 +48,6 @@ def _bam_signal(n):
     t = np.arange(n)
     m = np.sin(2 * np.pi * 2000.0 / 48000.0 * t)
     return ((1.0 + 0.5 * m) * np.exp(2j * np.pi * 0.001 * t + 1j * 0.5)).astype(np.complex64)
-
-
-def _stereo_composite(n, la, ra, scale=0.04):
-    """tests/test_oracle_composite.py's FM stereo IQ (kd = 4)."""
-    t = np.arange(n)
-    f_p = 19000.0 / IQ_RATE
-    comp = ((la + ra) / 2 + 0.1 * np.cos(2 * np.pi * f_p * t)
-            + ((la - ra) / 2) * np.cos(2 * np.pi * 2 * f_p * t)) * scale
-    return np.exp(1j * 2 * np.pi * 4.0 * np.cumsum(comp)).astype(np.complex64)
 
 
 def _tone(n, f):
@@ -83,7 +74,7 @@ CLASSES = {
     "BroadcastAM": (lambda L: L.BroadcastAM(), _bam_signal, 16_000, 120.0),
     "Delay": (lambda L: L.Delay(7), lambda n: _c64(n, 1), 2_000, 200.0),
     "FMStereo": (lambda L: L.FMStereo(IQ_RATE, PCM_RATE),
-                 lambda n: _stereo_composite(n, _tone(n, 800.0), _tone(n, 2300.0)),
+                 lambda n: stereo_composite(n, _tone(n, 800.0), _tone(n, 2300.0)),
                  30_000, 120.0),
     "FreqDem": (lambda L: L.FreqDem(0.1), lambda n: _c64(n, 2), 4_000, 140.0),
     "HilbertTransform": (lambda L: L.HilbertTransform(), lambda n: _c64(n, 3), 4_000, 140.0),
@@ -176,26 +167,12 @@ def test_fmstereo_mono_path_vs_reference_topology():
     pilot PLL)."""
     n = 120_000
     la = _tone(n, 1000.0) + 0.5 * _tone(n, 6300.0)
-    x = _stereo_composite(n, la, la)
+    x = stereo_composite(n, la, la)
     y_ref = FMStereoOracle(IQ_RATE, PCM_RATE, pll_bw=1e-5, warm_start=True)(x)[0::2]
     y = tdsp.FMStereo(iq_rate=IQ_RATE, pcm_rate=PCM_RATE)(x)[:, 0]
-    h = sig.firwin(201, 10000.0, fs=PCM_RATE)
-    a = np.convolve(y_ref, h, mode="valid")
-    b = np.convolve(y.astype(np.float64), h, mode="valid")
-    m = min(len(a), len(b))
-    a, b = a[m // 2:m], b[m // 2:m]
-    up = 8
-    au, bu = sig.resample(a, up * len(a)), sig.resample(b, up * len(b))
-    lag = np.argmax(np.correlate(bu, au, mode="full")) - (len(au) - 1)
-    if lag >= 0:
-        bu = bu[lag:]
-    else:
-        au = au[-lag:]
-    m = min(len(au), len(bu)) - up * 8
-    au, bu = au[:m], bu[:m]
-    g = np.dot(au, bu) / np.dot(au, au)
+    g, snr = mono_agreement(y_ref, y, PCM_RATE)
     assert 0.9 < g < 1.1, f"mono gain mismatch: {g}"
-    assert snr_db(g * au, bu) > 30.0
+    assert snr > 30.0
     assert first_order.first_order_apply_blocked_c64.launches == 0
 
 
@@ -206,7 +183,7 @@ def test_fmstereo_mono_and_separation():
     output, N = n pcm_rate / iq_rate)."""
     n = 120_000
     la = _tone(n, 1000.0)
-    y = tdsp.FMStereo(IQ_RATE, PCM_RATE)(_stereo_composite(n, la, la))
+    y = tdsp.FMStereo(IQ_RATE, PCM_RATE)(stereo_composite(n, la, la))
     assert y.dtype == np.float32 and y.ndim == 2 and y.shape[1] == 2
     assert abs(len(y) - n * PCM_RATE / IQ_RATE) <= 1
     L, R = y[len(y) // 2:, 0], y[len(y) // 2:, 1]
@@ -215,16 +192,11 @@ def test_fmstereo_mono_and_separation():
     assert abs(np.argmax(spec) * PCM_RATE / len(L) - 1000.0) < 30.0
 
     n = 600_000
-    y = tdsp.FMStereo(IQ_RATE, PCM_RATE)(_stereo_composite(n, _tone(n, 800.0),
-                                                            _tone(n, 2300.0), scale=0.04))
-    L, R = y[3 * len(y) // 4:, 0], y[3 * len(y) // 4:, 1]
-    w = np.hanning(len(L))
-    fl = np.fft.rfftfreq(len(L), 1 / PCM_RATE)
-    sL, sR = np.abs(np.fft.rfft(L * w)), np.abs(np.fft.rfft(R * w))
-    i800, i2300 = np.argmin(np.abs(fl - 800.0)), np.argmin(np.abs(fl - 2300.0))
-    pk = lambda s, i: np.max(s[i - 3:i + 4])
-    assert 20 * np.log10(pk(sL, i800) / pk(sL, i2300)) > 60.0
-    assert 20 * np.log10(pk(sR, i2300) / pk(sR, i800)) > 60.0
+    y = tdsp.FMStereo(IQ_RATE, PCM_RATE)(stereo_composite(n, _tone(n, 800.0),
+                                                           _tone(n, 2300.0), scale=0.04))
+    sep_l, sep_r = separation_db(y, 800.0, 2300.0, PCM_RATE)
+    assert sep_l > 60.0
+    assert sep_r > 60.0
 
 
 def test_nco_vs_liquid_accumulator():

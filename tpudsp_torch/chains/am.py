@@ -32,7 +32,9 @@ Two back ends (AGC -> AmpModem -> de-emphasis at the pcm rate):
   then the de-emphasis (each a csrc/first_order_scan.cu launch). With
   ``exact=True`` the AGC and the PLL run their exact single-lane scans
   instead; the fused-kernel back end is the chunked path, so it refuses
-  ``exact=True`` (ValueError), as the JAX package's does.
+  ``exact=True`` (ValueError), as the JAX package's does. A receiver built
+  with ``exact=True`` and no ``backend`` takes ``'xla'``, so the JAX
+  package's ``AMReceiver(cfg, n, exact=True)`` runs as it is.
 """
 
 from __future__ import annotations
@@ -200,9 +202,12 @@ def build(cfg: AMConfig, block_len: int, input_format: str = "c64",
     return params, state, n_out
 
 
-def _check_back_end(exact: bool, backend: str) -> str:
-    """The back end's name ('pallas' is 'kernel'); raise on an unknown one
-    and on the fused-kernel back end with exact=True."""
+def _check_back_end(exact: bool, backend: str | None) -> str:
+    """The back end's name: None is 'xla' with exact=True and 'kernel'
+    otherwise, 'pallas' is 'kernel'; raise on an unknown one and on the
+    fused-kernel back end asked for with exact=True."""
+    if backend is None:
+        return "xla" if exact else "kernel"
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r} (use 'kernel', 'pallas' or 'xla')")
     if backend != "xla" and exact:
@@ -212,7 +217,7 @@ def _check_back_end(exact: bool, backend: str) -> str:
 
 
 def _back_end(params: AMParams, state: AMState, baseband, cfg: AMConfig,
-              exact: bool = False, backend: str = "kernel"):
+              exact: bool = False, backend: str | None = None):
     """AGC -> AmpModem -> de-emphasis at the pcm rate: through the fused
     front kernel (cuda/am_backend_scan.am_backend_chunked), or with
     backend='xla' through the separate AGC and carrier-PLL scans (chunked,
@@ -257,7 +262,7 @@ def _metrics(agc_state, am_state, modes, device) -> BlockMetrics:
 
 
 def am_step_composed(params: AMParams, state: AMState, iq, *, cfg: AMConfig,
-                     exact: bool = False, backend: str = "kernel"):
+                     exact: bool = False, backend: str | None = None):
     """The reference-ordered chain: bandpass (overlap-save FIR) -> resample
     -> the back end. iq is (N,) complex64. Returns (state, (pcm,
     BlockMetrics))."""
@@ -273,7 +278,7 @@ def am_step_composed(params: AMParams, state: AMState, iq, *, cfg: AMConfig,
 
 
 def am_step_fused(params: AMParams, state: AMState, iq, *, cfg: AMConfig,
-                  exact: bool = False, backend: str = "kernel"):
+                  exact: bool = False, backend: str | None = None):
     """Fused front end (bandpass + anti-alias + decimate at the output
     points, one strided matmul) and the fused back end. iq is (N,)
     complex64, or (N, 2) raw int16 / uint8 when built for 'i16' / 'u8'.
@@ -319,12 +324,15 @@ class AMReceiver(nn.Module):
 
     ``plan`` ('fused' or 'composed'; an irrational rate takes 'composed'),
     ``exact`` and ``backend`` ('kernel', its JAX name 'pallas', or 'xla')
-    mirror the JAX receiver (the module docstring says what each runs);
-    i16 / u8 input needs the fused plan."""
+    mirror the JAX receiver (the module docstring says what each runs).
+    With no ``backend``, exact=True takes 'xla' (the JAX receiver's
+    default) and exact=False the fused kernel 'kernel'; 'kernel' or
+    'pallas' asked for with exact=True is a ValueError. i16 / u8 input
+    needs the fused plan."""
 
     def __init__(self, cfg: AMConfig = AMConfig(), block_len: int = 1_000_000,
                  input_format: str = "c64", *, plan: str = "fused",
-                 exact: bool = False, backend: str = "kernel",
+                 exact: bool = False, backend: str | None = None,
                  device="cuda"):
         super().__init__()
         if plan not in PLANS:

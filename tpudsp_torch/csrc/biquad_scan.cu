@@ -46,16 +46,19 @@
 // section s + 1 of the tile before, so the sections of the tiles run as a
 // wavefront.
 //
-// Bound. Per sample, row and section, passes 1 and 4 are two steps of
-// 125 f32 operations (two_prod 17, renorm 3, df_mul 24, df_add 11: two
-// input terms of 22, then 46 and 35 for the two state components) and y
-// (3): 253 operations, against 8 bytes a sample of a row (x in, y out)
-// for the whole cascade. At CLowpassIIR(order=8) on 2^18 complex64
-// samples (4 sections, 2 rows) that is 0.53 GFLOP (7.9 us at 67 TFLOP/s)
-// against 4.2 MB (1.3 us at 3.35 TB/s): operations bound it. Each
-// thread's 2 x 32 steps are a dependent chain, so the kernel runs at the
-// latency of that chain and of the tile-to-tile links, far above the
-// bound.
+// Bound. A step as written here is 125 f32 operations (two_prod 17,
+// renorm 3, df_mul 24, df_add 11: two input terms of 22, then 46 and 35
+// for the two state components). The function needs one step per sample,
+// row and section, 101 operations once the Dekker splits of the constant
+// coefficients (c0.hi, c1.hi, -a1, -a2: 4 each) come from the host and x
+// and v0.hi are split once each (4 each), and y (3): 104 operations,
+// against 8 bytes a sample of a row (x in, y out) for the whole cascade.
+// At CLowpassIIR(order=8) on 2^18 complex64 samples (4 sections, 2 rows)
+// that is 0.218 GFLOP (3.26 us at 67 TFLOP/s) against 4.2 MB (1.25 us at
+// 3.35 TB/s): operations bound it. This kernel runs each block twice
+// (passes 1 and 4) and each thread's 2 x 32 steps are a dependent chain,
+// so it runs at the latency of that chain and of the tile-to-tile links,
+// far above the bound.
 
 #include "tile_chain.cuh"
 
@@ -73,7 +76,6 @@ constexpr int WARPS = THREADS / 32;
 constexpr int HEAD = 16;              // a section's coefficients in its table row
 constexpr int NPOW = TB + 1;          // the block powers A^(L m), m = 0..TB
 constexpr int WIDTH = HEAD + 8 * NPOW;   // floats of a section's table row
-constexpr int LINK = 8;               // a link: the entry (4 floats), its flag, padding
 static_assert(THREADS % L == 0 && WARPS == 8 && TB == 256, "tile geometry");
 
 struct V2 {
@@ -256,7 +258,8 @@ biquad_scan_kernel(const float* __restrict__ tab, const float* __restrict__ x,
 // `rows` rows of n samples, sample k of row r at [r * rs + k * cs]; v_prev
 // and v_last are (sections, 2, rows) f32. scratch is the stream's buffer of
 // cuda/launch.chain: 4 int32 (the count of blocks ever started on it), then
-// 8 per section, row and tile (tiles = n / 8192 rounded up), zero when made;
+// a link of LINK (8) per section, row and tile (tiles = n / 8192 rounded
+// up), zero when made;
 // base is the count when this launch is enqueued and epoch a value no launch
 // on it has used yet (not 0). Launches on `stream` and returns a
 // cudaError_t (0 on success); does not synchronise.

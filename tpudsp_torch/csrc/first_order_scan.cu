@@ -11,13 +11,13 @@
 // launches this kernel is tpudsp_torch/cuda/first_order.
 //
 // Entry points:
-//   first_order_scan: one recurrence over each of C rows;
-//   first_order_scan_c64: one recurrence over the re and im parts of an
-//     interleaved complex64 row, run as two rows (b0 and a are real, so the
-//     parts are independent), read and written in place in the complex
-//     layout. The JAX twin, tpudsp/kernels/iir.py:343
+//   first_order_scan: one recurrence over each of C rows, read and written
+//     with the strides its caller gives: rows one after the other, or the
+//     re and im parts of an interleaved complex64 row as two rows (b0 and
+//     a are real, so the parts are independent), in place in the complex
+//     layout. The complex64 call's JAX twin, tpudsp/kernels/iir.py:343
 //     first_order_apply_blocked_c64, carries its block entries as plain
-//     complex64; this entry carries them in double-float like the real one;
+//     complex64; this kernel carries them in double-float for either;
 //   linear_tail_scan: the DC tracker (b0 = 1 - rho, a = rho), audio = (vr -
 //     dc * use_dc) * inv_mod, then the de-emphasis, over each of C rows.
 //
@@ -63,7 +63,7 @@
 // double-float steps and the chain are csrc/tile_chain.cuh's, shared with
 // biquad_scan.cu). Input and output lines are strided by thread (k =
 // thread + r TB), so they are coalesced (every other float of a line for
-// the complex64 entry). In linear_tail_scan the second
+// a complex64 row). In linear_tail_scan the second
 // recurrence runs on the audio of the same tile, which the first one has
 // just made, with a chain of entries of its own: neither recurrence's
 // output goes to device memory before the pcm.
@@ -90,7 +90,6 @@ constexpr int ROW = L + 1;            // a block's padded row in shared memory
 constexpr int LEVELS = 8;             // log2(TB)
 constexpr int WARPS = THREADS / 32;
 constexpr int POW = L * L + L;        // offset of the block powers in a table
-constexpr int LINK = 4;               // a link: the entry (hi, lo), its flag, padding
 static_assert(1 << LEVELS == TB && THREADS % L == 0 && WARPS <= 32, "tile geometry");
 
 // Shared memory of a launch with R recurrences: T transposed per
@@ -342,9 +341,25 @@ linear_tail_kernel(const float* __restrict__ tab_dc, const float* __restrict__ t
   }
 }
 
-int launch_scan(const float* tab, const float* x, const float* y_prev, float* y,
-                float* y_last, int* scratch, int rows, int n, int rs, int cs, int base,
-                int epoch, void* stream) {
+}  // namespace
+
+// Plain C entry points for ctypes. tab / tab_dc / tab_de are the host
+// tables of kernels/iir.block_table (L * L + L + 2 (TB + 1) f32 values: T
+// row-major, a^(i+1), a^(L m) for m = 0..TB as (hi, lo)); vr / pcm are
+// (rows, n) row-major f32; x / y are `rows` rows of n f32 samples, sample k
+// of row r at [r * rs + k * cs]: (rs, cs) = (n, 1) for rows one after the
+// other, (1, 2) for the re and im rows of one interleaved complex64 row;
+// y_prev, y_last, dc0, de0, dc_last, de_last are (rows,) (a complex64
+// scalar is the re and im rows' pair); scal = [use_dc, inv_mod]. scratch
+// is the stream's buffer of cuda/launch.chain: 4 int32 (the count of
+// blocks ever started on it), then a link of LINK (8) per recurrence, row
+// and tile (tiles = n / 8192 rounded up), zero when made; base is the
+// count when this launch is enqueued and epoch a value no launch on it has
+// used yet (not 0). Each launches on `stream` and returns a cudaError_t (0
+// on success); none synchronises.
+extern "C" int first_order_scan(const float* tab, const float* x, const float* y_prev,
+                                float* y, float* y_last, int* scratch, int rows, int n, int rs,
+                                int cs, int base, int epoch, void* stream) {
   if (rows <= 0 || n <= 0) return 0;
   static const cudaError_t set = allow_smem(first_order_scan_kernel, Smem<1>::BYTES);
   if (set != cudaSuccess) return static_cast<int>(set);
@@ -353,32 +368,6 @@ int launch_scan(const float* tab, const float* x, const float* y_prev, float* y,
                             static_cast<cudaStream_t>(stream)>>>(
       tab, x, y_prev, y, y_last, n, rows, tiles, rs, cs, make_chain(scratch, base, epoch));
   return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
-
-// Plain C entry points for ctypes. tab / tab_dc / tab_de are the host
-// tables of kernels/iir.block_table (L * L + L + 2 (TB + 1) f32 values: T
-// row-major, a^(i+1), a^(L m) for m = 0..TB as (hi, lo)); x / vr / y / pcm
-// are (rows, n) row-major f32; y_prev, y_last, dc0, de0, dc_last, de_last
-// are (rows,); scal = [use_dc, inv_mod]. first_order_scan_c64 takes x and
-// y as one interleaved complex64 row of n samples, run as its re and im
-// rows, with y_prev and y_last complex64 scalars. scratch is the stream's
-// buffer of cuda/launch.chain: 4 int32 (the count of blocks ever started
-// on it), then 4 per recurrence, row and tile (tiles = n / 8192 rounded
-// up), zero when made; base is the count when this launch is enqueued and
-// epoch a value no launch on it has used yet (not 0). Each launches on
-// `stream` and returns a cudaError_t (0 on success); none synchronises.
-extern "C" int first_order_scan(const float* tab, const float* x, const float* y_prev,
-                                float* y, float* y_last, int* scratch, int rows, int n,
-                                int base, int epoch, void* stream) {
-  return launch_scan(tab, x, y_prev, y, y_last, scratch, rows, n, n, 1, base, epoch, stream);
-}
-
-extern "C" int first_order_scan_c64(const float* tab, const float* x, const float* y_prev,
-                                    float* y, float* y_last, int* scratch, int n, int base,
-                                    int epoch, void* stream) {
-  return launch_scan(tab, x, y_prev, y, y_last, scratch, 2, n, 1, 2, base, epoch, stream);
 }
 
 extern "C" int linear_tail_scan(const float* tab_dc, const float* tab_de, const float* scal,

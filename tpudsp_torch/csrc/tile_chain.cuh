@@ -16,7 +16,10 @@
 // release store; the reader acquires the flag, then reads the value past
 // L1. The wrapper keeps one buffer per stream (cuda/launch.chain), made
 // zero once: launches on one stream run in order, so they share it
-// without clearing it.
+// without clearing it. Every kernel's links have the one width LINK with
+// the flag in the last slot, so a flag slot only ever holds an epoch,
+// whichever kernel used the buffer before: a value left by another
+// kernel can never be read as a flag.
 
 #pragma once
 
@@ -63,19 +66,29 @@ __device__ __forceinline__ Df df_mul(Df x, Df y) {
   return renorm(p.hi, p.lo + (x.hi * y.lo + x.lo * y.hi));
 }
 
-// A link of N floats at `link`, its flag the int after them
+// 32-bit slots of a link: its value (up to LINK - 1 floats), then its flag
+// in the last slot (cuda/launch.LINK)
+constexpr int LINK = 8;
+
+// A value of N floats at `link`, then its flag
 template <int N>
 __device__ __forceinline__ void publish(float* link, const float (&v)[N], int epoch) {
+  static_assert(N < LINK, "a link's value ends before its flag");
 #pragma unroll
   for (int i = 0; i < N; ++i) link[i] = v[i];
-  asm volatile("st.release.gpu.global.s32 [%0], %1;" ::"l"(link + N), "r"(epoch) : "memory");
+  asm volatile("st.release.gpu.global.s32 [%0], %1;" ::"l"(link + LINK - 1), "r"(epoch)
+               : "memory");
 }
 
 template <int N>
 __device__ __forceinline__ void await(const float* link, float (&v)[N], int epoch) {
+  static_assert(N < LINK, "a link's value ends before its flag");
   for (long long spin = 0;; ++spin) {
     int ready;
-    asm volatile("ld.acquire.gpu.global.s32 %0, [%1];" : "=r"(ready) : "l"(link + N) : "memory");
+    asm volatile("ld.acquire.gpu.global.s32 %0, [%1];"
+                 : "=r"(ready)
+                 : "l"(link + LINK - 1)
+                 : "memory");
     if (ready == epoch) break;
     if (spin > (1ll << 24)) __trap();   // never: the tile before is on a running block
     __nanosleep(32);
@@ -89,7 +102,7 @@ struct Chain {
   unsigned* counter;   // blocks started on this scratch buffer, ever
   unsigned base;       // its value when this launch was enqueued
   int epoch;
-  float* links;        // the launch's links, each of the kernel's own width
+  float* links;        // the launch's links, LINK slots each
 
   // This block's ticket, in the order the blocks start. Ends with
   // __syncthreads.

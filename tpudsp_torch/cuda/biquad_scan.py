@@ -43,7 +43,7 @@ def sos_apply_df(tab, state, x):
     last = torch.empty_like(state)
     tiles = -(-n // (kiir.TILE_BLOCKS * kiir.L_BLOCK))
     stream = launch.stream(dev)
-    scratch, base, epoch = launch.chain(dev, stream, 4 + 8 * S * rows * tiles, rows * tiles)
+    scratch, base, epoch = launch.chain(dev, stream, S * rows * tiles, rows * tiles)
     launch.launch(KERNEL, dev, tab, x, state, y, last, scratch, S, rows, n, rs, cs, base,
                   epoch, on=stream)
     sos_apply_df.launches += 1

@@ -47,8 +47,7 @@ SIGNATURES = {
         "halo_async": [_P] * 4 + [_I] * 10 + [_P],
     },
     "first_order_scan": {
-        "first_order_scan": [_P] * 6 + [_I] * 4 + [_P],
-        "first_order_scan_c64": [_P] * 6 + [_I] * 3 + [_P],
+        "first_order_scan": [_P] * 6 + [_I] * 6 + [_P],
         "linear_tail_scan": [_P] * 10 + [_I] * 4 + [_P],
     },
     "biquad_scan": {

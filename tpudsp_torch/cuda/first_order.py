@@ -9,7 +9,8 @@ runs it as one hand-written kernel launch per call:
   y_prev, or over C rows (C, n) with y_prev (C,), in one launch;
 - ``first_order_apply_blocked_c64``: one recurrence over x (n,)
   complex64 (its re and im parts as two rows, read in place) with a
-  complex64 y_prev, in one launch of the kernel's complex64 entry;
+  complex64 y_prev, in one launch of the same entry (its launches counted
+  apart);
 - ``linear_tail``: the AM receiver's DC tracker, audio line and
   de-emphasis over vr (n,), in one launch.
 
@@ -27,37 +28,44 @@ from . import launch
 KERNEL = "first_order_scan"
 
 
-def _launch(entry: str, tabs, scal, x, carries):
-    """Launch ``entry`` of csrc/first_order_scan.cu over the rows of x
-    (C, n) f32 with the tables ``tabs``, the scalars ``scal`` (None for
-    first_order_scan) and the per-row carries (C,). Returns (y (C, n), the
-    last value of each recurrence per row)."""
+def _launch(entry: str, tabs, scal, x, carries, counter=None):
+    """Launch ``entry`` of csrc/first_order_scan.cu with the tables ``tabs``
+    and the scalars ``scal`` (None for first_order_scan) over the rows of
+    x: (C, n) f32 with per-row carries (C,), or, for first_order_scan,
+    (n,) complex64 read in place as its re and im rows with complex64 0-d
+    carries. Counts the launch in ``counter``'s (default ``_launch``)
+    ``launches``. Returns (y like x, the last value of each recurrence like
+    its carry)."""
     dev = x.device
     launch.on_cuda(KERNEL, dev)
-    C, n = x.shape
+    n = x.shape[-1]
     if n == 0:
         raise ValueError(f"{KERNEL}: a row needs at least one sample")
-    f32 = torch.float32
-    launch.check(KERNEL, "x", x, f32, (C, n), dev)
+    cplx = x.is_complex()
+    dt = torch.complex64 if cplx else torch.float32
+    # rows of the kernel, rows of x's own type, and the strides of a row
+    C, R, rs, cs = (2, 1, 1, 2) if cplx else (x.shape[0], x.shape[0], n, 1)
+    launch.check(KERNEL, "x", x, dt, (n,) if cplx else (C, n), dev)
     for t in tabs:
-        launch.check(KERNEL, "table", t, f32, (kiir.TABLE_SIZE,), dev)
+        launch.check(KERNEL, "table", t, torch.float32, (kiir.TABLE_SIZE,), dev)
     for t in carries:
-        launch.check(KERNEL, "carry", t, f32, (C,), dev)
+        launch.check(KERNEL, "carry", t, dt, () if cplx else (C,), dev)
     head = list(tabs)
     if scal is not None:
-        launch.check(KERNEL, "scalars", scal, f32, (2,), dev)
+        launch.check(KERNEL, "scalars", scal, torch.float32, (2,), dev)
         head.append(scal)
     # y and the last values in one allocation
-    out = torch.empty(C * (n + len(carries)), dtype=f32, device=dev)
-    y = out[:C * n].view(C, n)
-    last = [out[C * (n + k):C * (n + k + 1)] for k in range(len(carries))]
+    out = torch.empty(R * (n + len(carries)), dtype=dt, device=dev)
+    y = out[:R * n].view(x.shape)
+    last = [out[R * (n + k):R * (n + k + 1)].view(carries[k].shape)
+            for k in range(len(carries))]
+    geometry = (C, n) if scal is not None else (C, n, rs, cs)
     tiles = -(-n // (kiir.TILE_BLOCKS * kiir.L_BLOCK))
     stream = launch.stream(dev)
-    scratch, base, epoch = launch.chain(dev, stream, 4 + 4 * len(carries) * C * tiles,
-                                        C * tiles)
-    launch.launch(entry, dev, *head, x, *carries, y, *last, scratch, C, n, base, epoch,
+    scratch, base, epoch = launch.chain(dev, stream, len(carries) * C * tiles, C * tiles)
+    launch.launch(entry, dev, *head, x, *carries, y, *last, scratch, *geometry, base, epoch,
                   source=KERNEL, on=stream)
-    _launch.launches += 1
+    (counter or _launch).launches += 1
     return y, last
 
 
@@ -81,27 +89,15 @@ def first_order_apply_blocked(b0: float, a: float, y_prev, x):
 
 def first_order_apply_blocked_c64(b0: float, a: float, y_prev, x):
     """y[n] = b0 x[n] + a y[n-1] over x (n,) complex64 with a complex64
-    y_prev, as kernels/iir.first_order_apply_blocked_c64 computes it.
-    Returns (y_last, y)."""
+    y_prev, as kernels/iir.first_order_apply_blocked_c64 computes it: one
+    launch, the re and im parts as two rows. Returns (y_last, y)."""
     if x.device.type == "cpu":
         return kiir.first_order_apply_blocked_c64(b0, a, y_prev, x)
-    dev = x.device
-    launch.on_cuda(KERNEL, dev)
-    n = x.shape[-1]
-    if n == 0:
-        raise ValueError(f"{KERNEL}: a row needs at least one sample")
-    c64 = torch.complex64
-    launch.check(KERNEL, "x", x, c64, (n,), dev)
-    y_prev = torch.as_tensor(y_prev, dtype=c64, device=dev).reshape(()).contiguous()
-    tab = kiir.device_table(float(b0), float(a), dev)
-    out = torch.empty(n + 1, dtype=c64, device=dev)    # y, then y_last
-    tiles = -(-n // (kiir.TILE_BLOCKS * kiir.L_BLOCK))
-    stream = launch.stream(dev)
-    scratch, base, epoch = launch.chain(dev, stream, 4 + 4 * 2 * tiles, 2 * tiles)
-    launch.launch("first_order_scan_c64", dev, tab, x, y_prev, out[:n], out[n:], scratch, n,
-                  base, epoch, source=KERNEL, on=stream)
-    first_order_apply_blocked_c64.launches += 1
-    return out[n], out[:n]
+    y_prev = torch.as_tensor(y_prev, dtype=torch.complex64, device=x.device).reshape(())
+    tab = kiir.device_table(float(b0), float(a), x.device)
+    y, (last,) = _launch("first_order_scan", (tab,), None, x, (y_prev.contiguous(),),
+                         counter=first_order_apply_blocked_c64)
+    return last, y
 
 
 first_order_apply_blocked_c64.launches = 0

@@ -79,14 +79,18 @@ def launch(kernel: str, device, *args, source: str | None = None, on: int | None
 # counter in the scratch and pass their tiles' entries on through links in
 # it, flagged with the launch's epoch: launches on one stream run in
 # order, so every blocked scan on it shares the buffer without clearing it.
+# Every kernel's links are LINK int32 wide with the flag last, so a flag
+# slot never holds another kernel's value.
 _chains: dict = {}
 _EPOCHS = 2 ** 31 - 1
+LINK = 8
 
 
-def chain(dev, stream: int, size: int, blocks: int):
-    """The stream's scratch of at least ``size`` int32 for a launch of
-    ``blocks`` blocks, its block count before the launch (as a C int) and
+def chain(dev, stream: int, links: int, blocks: int):
+    """The stream's scratch, with room for ``links`` links, for a launch of
+    ``blocks`` blocks; its block count before the launch (as a C int) and
     the launch's epoch."""
+    size = 4 + LINK * links
     st = _chains.get((dev, stream))
     if st is None or st[0].numel() < size:
         st = _chains[(dev, stream)] = [torch.zeros(max(size, 4096), dtype=torch.int32,
