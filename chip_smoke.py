@@ -116,7 +116,26 @@ fails:
               where the oracle's own module imports the JAX package) at
               FIDELITY.md section 1's bars, each path's launches, each
               call timed (median of 5, spread);
-9. timing  -- per-format block time of the AM receiver (host clock and CUDA
+9. receivers -- the other chains at bench.py's widths (configs 2 and 3):
+              the 16-channel FM bank (linspace(-1e6, 1e6, 16), 2.4 Msps)
+              on three 8M-sample blocks in c64, i16 and u8 (and c64 of the
+              i16 / u8 values), a mixed fm / coherent am / usb / lsb bank
+              over the same channels, WBFM mono and stereo (c64 / i16 /
+              u8) on 2M-sample blocks, SSBReceiver on 1M-sample blocks,
+              chunked and exact. Each path's first kernel calls are
+              recorded and held against their plain versions on the same
+              tensors (halo_async, the bank's front end on one card, on
+              blocks 0 and 1, whose halo is block 0's tail, against
+              cfir_ref and the conv form at 110 dB; am_front_scan,
+              agc_scan, first_order_scan's rows and the pilot smoothers bit
+              for bit); the FM channels against the float64 FM-bank oracle
+              (tests/oracle/bank_oracle.py, >= 100 dB), i16 / u8 against
+              the c64 of their values (90; u8 60 then 85), stereo
+              separation and SSB sideband rejection (> 30 dB), two blocks
+              against one of double length (> 60 dB); each path's block
+              time, samples/s and a profiler window, and the bank front
+              at bank16's shape: the kernel, conv1d and the wide matmul;
+10. timing -- per-format block time of the AM receiver (host clock and CUDA
               events), per-mode block time of the sharded receiver,
               per-callback time of the AMRadio (median of 5 with spread),
               one torch.profiler window over a c64 block (kernel launches
@@ -129,12 +148,16 @@ fails:
               halo_async's against one torch.nn.functional.conv1d call,
               TF32 off.
 
-Phases 3-8 also count the kernels' launches on their path (the counts set
+Phases 3-9 also count the kernels' launches on their path (the counts set
 to 0 just before it, read just after) and fail on another count:
 first_order_scan once per AMReceiver block, twice per ShardedAMReceiver
 block (the DC tracker's rows and the de-emphasis) and per AMRadio callback
-(AmpModem's DC tracker and DeemphasisFilter); in phases 7 and 8 every
-kernel, per block or call (AM_OPTIONS, phase_surface).
+(AmpModem's DC tracker and DeemphasisFilter); in phases 7-9 every
+kernel, per block or call (AM_OPTIONS, phase_surface, the receivers'
+per-block counts: bank halo_async 1 and first_order_scan 1, the mixed
+bank also am_front_scan 2 and first_order_scan 1 more, stereo
+first_order_scan 1 and first_order_scan_c64 2, SSB agc_scan 2 chunked
+and 1 exact).
 
 Prints the card's name and power limit first, and again (with the torch,
 CUDA and Python versions) just before a "kernels" JSON line, which comes
@@ -1526,6 +1549,407 @@ def phase_surface():
         log(f"timing: {name} call, profiler window: {json.dumps(profile_block(op, bl))}")
 
 
+# --------------------------------------------------------------------------
+# The receiver chains beyond the AM receiver, at the full widths of
+# bench.py's configs 2 and 3 (bench.py:451-504): the 16-channel FM bank
+# on 8M-sample blocks in c64 / i16 / u8, a mixed fm / coherent am / usb /
+# lsb bank over the same channels, WBFM mono and stereo on 2M-sample
+# blocks, and SSBReceiver on 1M-sample blocks, chunked and exact.
+N_BANK = 8_000_000
+N_WBFM = 2_000_000
+N_SSB = 1_000_000
+BANK_FREQS = tuple(float(f) for f in np.linspace(-1e6, 1e6, 16, endpoint=False))
+MIXED = ("fm", "am", "usb", "lsb") * 4
+FM_DEV = 10_000.0          # the test carriers' peak deviation (Hz)
+AM_OFFSET, USB_TONE, LSB_TONE = 20.0, 1200.0, 900.0   # Hz off the channel centre
+
+
+@contextlib.contextmanager
+def recording(module, name: str, keep: int):
+    """While on, module.<name> keeps the arguments and output of its first
+    ``keep`` calls in the yielded list (as (args, output)); it computes
+    what it did."""
+    fn = getattr(module, name)
+    calls = []
+
+    def wrapper(*args):
+        out = fn(*args)
+        if len(calls) < keep:
+            calls.append((args, out))
+        return out
+    setattr(module, name, wrapper)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, fn)
+
+
+def bank_signal(n: int, demods, seed: int, amp: float = 0.05):
+    """One carrier per BANK_FREQS channel, made in float64 on the card:
+    FM (FM_DEV, a tone of 400 + 150 k Hz) for 'fm', 50% AM of a 1 kHz tone
+    AM_OFFSET off centre for 'am', a tone USB_TONE above or LSB_TONE below
+    the centre for 'usb' / 'lsb'. Returns complex128 (n,)."""
+    import torch
+    rng = np.random.default_rng(seed)
+    t = torch.arange(n, dtype=torch.float64, device=DEV)
+    x = torch.zeros(n, dtype=torch.complex128, device=DEV)
+    w = lambda f: 2 * np.pi * f / 2.4e6
+    for k, (fc, d) in enumerate(zip(BANK_FREQS, demods)):
+        ph0 = float(rng.uniform(0, 2 * np.pi))
+        env = torch.full_like(t, amp)
+        if d == "fm":
+            fm_hz = 400.0 + 150.0 * k
+            ph = w(fc) * t + FM_DEV / fm_hz * torch.sin(w(fm_hz) * t)
+        elif d == "am":
+            ph = w(fc + AM_OFFSET) * t
+            env = amp * (1.0 + 0.5 * torch.sin(w(1000.0) * t))
+        else:
+            ph = w(fc + (USB_TONE if d == "usb" else -LSB_TONE)) * t
+        x += torch.polar(env, ph + ph0)
+    return x
+
+
+def wire_of(x):
+    """A complex128 stream on the card as c64, raw i16 and u8 (n, 2), and
+    the c64 of the i16 and u8 values."""
+    import torch
+    v = torch.view_as_real(x.to(torch.complex64))
+    i16 = torch.round(v * 32767).clamp(-32767, 32767).to(torch.int16)
+    u8 = torch.round(v * 127.5 + 127.5).clamp(0, 255).to(torch.uint8)
+    c = lambda p: torch.complex(p[:, 0], p[:, 1])
+    return {"c64": x.to(torch.complex64), "i16": i16, "u8": u8,
+            "c64_i16": c(i16.float() / 32767), "c64_u8": c((u8.float() - 127.5) / 127.5)}
+
+
+def _split(x, block: int):
+    return [x[k * block:(k + 1) * block] for k in range(x.shape[0] // block)]
+
+
+def bank_oracle_f64(rx, iq, channels):
+    """tests/oracle/bank_oracle.fm_bank_f64 for a bank's FM ``channels``,
+    with the bank's designs in float64, on the host."""
+    from tpudsp_torch.design import firdes, iirdes
+    cfg = rx.cfg
+    return oracle_module("bank_oracle").fm_bank_f64(
+        iq.cpu().numpy(), rx.params.dtheta.cpu().numpy()[list(channels)],
+        firdes.kaiser_lowpass(cfg.taps1, 0.45 / cfg.decim1, 60.0),
+        firdes.kaiser_lowpass(cfg.taps2, 0.45 / cfg.decim2, 60.0), cfg.decim1, cfg.decim2,
+        cfg.kd, *iirdes.deemphasis_coeffs(cfg.audio_rate))
+
+
+def _run_chain(path: str, rx, blocks, per_block: dict, records=()):
+    """rx over blocks on the card, its launches counted (the counts set to
+    0 just before, read just after) and held to per_block x len(blocks);
+    ``records``: (module, name, keep) to record during the run. Returns
+    (the outputs, the recorded calls)."""
+    import torch
+    with contextlib.ExitStack() as stack:
+        rec = [stack.enter_context(recording(*r)) for r in records]
+        torch.cuda.synchronize()
+        zero_counts()                                  # the path starts
+        outs = [rx(b) for b in blocks]
+        torch.cuda.synchronize()
+        expect_counts(f"receivers {path}", read_counts(),   # ... and ends
+                      {k: len(blocks) * v for k, v in per_block.items()})
+    if not all(bool(torch.isfinite(o).all()) for o in outs):
+        raise AssertionError(f"receivers {path}: output not finite")
+    return outs, rec
+
+
+def _check(what: str, value: float, bar: float):
+    log(f"receivers: {what}: {value:.2f} (bar {bar:g})")
+    if not value > bar:
+        raise AssertionError(f"receivers: {what} {value:.2f}, bar {bar:g}")
+
+
+def _conv_front(x, halo, Tre, Tim, D1, nj):
+    """The JAX package's CPU form of the bank front on [halo | x]: one
+    strided conv1d (kernels/decimate.strided_cfir_conv*, TF32 off)."""
+    import torch
+    from tpudsp_torch.kernels import decimate as kdec
+    f = {torch.complex64: kdec.strided_cfir_conv, torch.int16: kdec.strided_cfir_conv_i16,
+         torch.uint8: kdec.strided_cfir_conv_u8}[x.dtype]
+    return f(torch.cat([halo, x]), Tre, Tim, D1, nj)
+
+
+def _hold_front(path: str, calls):
+    """Each recorded halo_async launch of the bank front (cuda/halo_async.
+    cfir: block 0's, whose halo is the initial fill, and block 1's, whose
+    halo is block 0's tail) against its plain version cfir_ref and against
+    the conv form on the same CUDA tensors: >= 110 dB each."""
+    from tpudsp_torch.cuda import halo_async
+    for k, ((x, halo, Tre, Tim, D1, nj), y) in enumerate(calls):
+        y = y.cpu().numpy()
+        for name, ref in (("plain cfir_ref", halo_async.cfir_ref(x, halo, Tre, Tim, D1, nj)),
+                          ("conv form", _conv_front(x, halo, Tre, Tim, D1, nj))):
+            _check(f"{path} block {k} halo_async vs {name} C={Tre.shape[0]} nj={nj} "
+                   f"{x.dtype} SNR dB", snr_db(ref.cpu().numpy(), y), 110.0)
+
+
+def _hold_first_order(path: str, calls):
+    """Each recorded first_order_apply_blocked call against kernels/iir's
+    plain version, bit for bit."""
+    from tpudsp_torch.kernels import iir as kiir
+    for k, (args, (last, y)) in enumerate(calls):
+        r_last, r_y = kiir.first_order_apply_blocked(*args)
+        _compare_exact(f"{path} first_order_scan call {k} rows {tuple(y.shape)}",
+                       (y, last), (r_y, r_last))
+
+
+def _pure_tone_hz(a, fs: float = 48_000.0) -> float:
+    spec = np.abs(np.fft.rfft(a * np.hanning(len(a))))
+    return float(np.fft.rfftfreq(len(a), 1 / fs)[np.argmax(spec[3:]) + 3])
+
+
+def receivers_bank16(timings):
+    """bench.py's bank16 (16 FM channels, linspace(-1e6, 1e6, 16), 2.4
+    Msps) on three 8M-sample blocks in c64, i16 and u8."""
+    import torch
+    from tpudsp_torch.chains import BankConfig, ReceiverBank
+    from tpudsp_torch.cuda import first_order, halo_async
+    cfg = BankConfig(freqs=BANK_FREQS)
+    x = bank_signal(3 * N_BANK, ("fm",) * 16, seed=20)
+    wire = {k: _split(v, N_BANK) for k, v in wire_of(x).items()}
+    outs, rxs = {}, {}
+    for fmt in ("c64", "i16", "u8", "c64_i16", "c64_u8"):
+        rx = rxs[fmt] = ReceiverBank(cfg, N_BANK, input_format=fmt[:3], device=DEV)
+        outs[fmt], (front, tails) = _run_chain(
+            f"bank16 {fmt}", rx, wire[fmt], {"halo_async": 1, "first_order_scan": 1},
+            [(halo_async, "cfir", 2), (first_order, "first_order_apply_blocked", 1)])
+        if fmt in ("c64", "i16", "u8"):
+            _hold_front(f"bank16 {fmt}", front)
+            _hold_first_order(f"bank16 {fmt}", tails)
+            timings[f"bank16 {fmt}"] = (rx, wire[fmt], N_BANK)
+        if fmt == "c64":
+            results["bank_front"] = front[0][0]
+    y = {k: torch.cat(v, 1).cpu().numpy() for k, v in outs.items()}
+    m = N_BANK // 50
+    ref = bank_oracle_f64(rxs["c64"], wire["c64"][0], range(16))
+    worst = min(snr_db(ref[c, 50:], y["c64"][c, 50:m]) for c in range(16))
+    _check("bank16 c64 block 0 vs float64 FM-bank oracle, worst channel, dB", worst, 100.0)
+    _check("bank16 i16 vs c64 of the i16 values, 3 blocks, dB", snr_db(y["c64_i16"], y["i16"]), 90.0)
+    _check("bank16 u8 vs c64 of the u8 values, block 0 past 32, dB",
+           snr_db(y["c64_u8"][:, 32:m], y["u8"][:, 32:m]), 60.0)
+    _check("bank16 u8 vs c64 of the u8 values, blocks 1-2, dB",
+           snr_db(y["c64_u8"][:, m:], y["u8"][:, m:]), 85.0)
+    one = ReceiverBank(cfg, 2 * N_BANK, device=DEV)(x[:2 * N_BANK].to(torch.complex64)).cpu().numpy()
+    _check("bank16 two 8M blocks vs one 16M block, dB", snr_db(one[:, 10:], y["c64"][:, 10:2 * m]),
+           60.0)
+
+
+def receivers_mixed(timings):
+    """The 16 channels as fm / coherent am / usb / lsb in turn
+    (am_coherent=True, backend 'kernel'), three 8M-sample c64 blocks."""
+    import torch
+    from tpudsp_torch.chains import BankConfig, ReceiverBank
+    from tpudsp_torch.chains import bank as cbank
+    from tpudsp_torch.cuda import am_backend_scan as scan
+    from tpudsp_torch.cuda import first_order, halo_async
+    from tpudsp_torch.kernels import warmup as kwarm
+    cfg = BankConfig(freqs=BANK_FREQS, demod=MIXED, am_coherent=True)
+    x = bank_signal(3 * N_BANK, MIXED, seed=21)
+    blocks = _split(x.to(torch.complex64), N_BANK)
+    rx = ReceiverBank(cfg, N_BANK, device=DEV)
+    # the AM channels' front: one launch over the 4 streams, and one more
+    # for the exact re-run of each stream's zero-padded last chunk when the
+    # chunk does not divide the channel-rate block (800,000 = 781 x 1024 + 256)
+    L = N_BANK // cfg.decim1
+    front_launches = 1 + bool(L % cbank.KERNEL_CHUNK)
+    outs, (front, tails, am) = _run_chain(
+        "mixed", rx, blocks,
+        {"halo_async": 1, "first_order_scan": 2, "am_front_scan": front_launches},
+        [(halo_async, "cfir", 2), (first_order, "first_order_apply_blocked", 2),
+         (cbank, "front_chunked", 1)])
+    _hold_front("mixed", front)
+    _hold_first_order("mixed", tails)
+    p, st, xa, chunk, warmup = am[0][0]
+    if chunk != cbank.KERNEL_CHUNK or warmup != kwarm.warmup_for(agc_alpha=0.01, pll_bw=0.001):
+        raise AssertionError(f"mixed: AM front chunk {chunk} warmup {warmup}")
+    _compare(f"mixed am_front_scan C={xa.shape[0]} L={xa.shape[1]} chunk {chunk} warmup {warmup}",
+             am[0][1], scan.front_chunked_ref(p, st, xa, chunk, warmup))
+    timings["mixed c64"] = (rx, blocks, N_BANK)
+    y = torch.cat(outs, 1).cpu().numpy()
+    m = N_BANK // 50
+    fm_ch = [k for k, d in enumerate(MIXED) if d == "fm"]
+    ref = bank_oracle_f64(rx, blocks[0], fm_ch)
+    worst = min(snr_db(ref[i, 50:], y[c, 50:m]) for i, c in enumerate(fm_ch))
+    _check("mixed FM channels, block 0 vs float64 FM-bank oracle, worst channel, dB", worst, 100.0)
+    last = y[:, 2 * m:]
+    for k, d in enumerate(MIXED):
+        if d == "am" and not abs(last[k].mean()) < 0.05 * np.abs(last[k]).max():
+            raise AssertionError(f"mixed: AM channel {k} has a DC of {last[k].mean():.4f}")
+        tone = {"am": 1000.0, "usb": USB_TONE, "lsb": LSB_TONE}.get(d)
+        if tone and abs(_pure_tone_hz(last[k] - last[k].mean()) - tone) > 40.0:
+            raise AssertionError(f"mixed: channel {k} ({d}) does not carry its {tone} Hz tone")
+    log("receivers: mixed AM channels DC-free, AM / USB / LSB channels on their tones")
+    one = ReceiverBank(cfg, 2 * N_BANK, device=DEV)(torch.cat(blocks[:2])).cpu().numpy()
+    _check("mixed two 8M blocks vs one 16M block, dB", snr_db(one[:, 10:], y[:, 10:2 * m]), 60.0)
+
+
+def receivers_wbfm(timings):
+    """WBFM mono and stereo on three 2M-sample blocks (bench.py's n2):
+    mono vs the float64 FM-bank oracle; stereo in c64 / i16 / u8, its
+    separation and wire formats."""
+    import torch
+    from tpudsp_torch.chains import WBFMStereoReceiver, mono_receiver
+    from tpudsp_torch.cuda import first_order, halo_async
+    from tpudsp_torch.kernels import iir as kiir
+    from tpudsp_torch.kernels import pll as kpll
+    t = torch.arange(3 * N_WBFM, dtype=torch.float64, device=DEV)
+    w = lambda f: 2 * np.pi * f / 2.4e6
+    xm = torch.polar(torch.full_like(t, 0.7),
+                     w(100e3) * t + 75e3 / 1000.0 * torch.sin(w(1000.0) * t)).to(torch.complex64)
+    rx = mono_receiver(100e3, block_len=N_WBFM, device=DEV)
+    outs, (front, tails) = _run_chain(
+        "wbfm mono", rx, _split(xm, N_WBFM), {"halo_async": 1, "first_order_scan": 1},
+        [(halo_async, "cfir", 2), (first_order, "first_order_apply_blocked", 1)])
+    _hold_front("wbfm mono", front)
+    _hold_first_order("wbfm mono", tails)
+    timings["wbfm mono c64"] = (rx, _split(xm, N_WBFM), N_WBFM)
+    ref = bank_oracle_f64(rx, xm, [0])
+    _check("wbfm mono 3 blocks vs float64 FM-bank oracle, dB",
+           snr_db(ref[:, 50:], torch.cat(outs, 1).cpu().numpy()[:, 50:]), 100.0)
+    # stereo: tests/test_chains.py:141-160's composite, L 900 Hz, R 2500 Hz
+    fm = oracle_module("fm_stereo_checks")
+    n = 3 * N_WBFM
+    tone = lambda f: np.sin(2 * np.pi * f / 2.4e6 * np.arange(n))
+    xs = torch.from_numpy(fm.stereo_composite(n, tone(900.0), tone(2500.0), 2.4e6, 0.008)).to(DEV)
+    wire = {k: _split(v, N_WBFM) for k, v in wire_of(xs.to(torch.complex128)).items()}
+    ys = {}
+    for fmt in ("c64", "i16", "u8", "c64_i16", "c64_u8"):
+        rx = WBFMStereoReceiver(block_len=N_WBFM, input_format=fmt[:3], device=DEV)
+        outs, (tails, poles) = _run_chain(
+            f"wbfm stereo {fmt}", rx, wire[fmt],
+            {"first_order_scan": 1, "first_order_scan_c64": 2},
+            [(first_order, "first_order_apply_blocked", 1), (kpll, "_onepole_scan", 2)])
+        ys[fmt] = torch.cat(outs).cpu().numpy()
+        if fmt in ("c64", "i16", "u8"):
+            _hold_first_order(f"wbfm stereo {fmt}", tails)
+            for k, ((rho, carry, v), y) in enumerate(poles):
+                _compare_exact(f"wbfm stereo {fmt} pilot smoother {k} n={v.shape[0]}", (y,),
+                               (kiir.first_order_apply_blocked_c64(1.0 - rho, rho, carry, v)[1],))
+            timings[f"wbfm stereo {fmt}"] = (rx, wire[fmt], N_WBFM)
+    sep_l, sep_r = fm.separation_db(ys["c64"], 900.0, 2500.0)
+    _check("wbfm stereo c64 separation L (900 Hz over 2500 Hz), dB", sep_l, 30.0)
+    _check("wbfm stereo c64 separation R (2500 Hz over 900 Hz), dB", sep_r, 30.0)
+    for fmt in ("i16", "u8"):
+        s0 = len(ys["c64"]) // 10
+        _check(f"wbfm stereo {fmt} vs c64 of its values past the first tenth, dB",
+               snr_db(ys[f"c64_{fmt}"][s0:], ys[fmt][s0:]), 80.0)
+    one = WBFMStereoReceiver(block_len=2 * N_WBFM, device=DEV)(torch.cat(wire["c64"][:2])).cpu().numpy()
+    _check("wbfm stereo two 2M blocks vs one 4M block, dB",
+           snr_db(one[200:], ys["c64"][200:len(one)]), 60.0)
+
+
+def receivers_ssb(timings):
+    """SSBReceiver() (2 Msps, 48 kHz pcm) on three 1M-sample blocks of a
+    USB voice signal, chunked and exact; the LSB receiver rejects it."""
+    import scipy.signal as sig
+    import torch
+    from tpudsp_torch.chains import SSBConfig, SSBReceiver
+    from tpudsp_torch.cuda import agc_scan
+    from tpudsp_torch.kernels import agc as kagc
+    from tpudsp_torch.kernels import warmup as kwarm
+    n = 3 * N_SSB
+    t = np.arange(n)
+    m = np.sin(2 * np.pi * 800.0 / 2e6 * t) + 0.5 * np.sin(2 * np.pi * 1900.0 / 2e6 * t)
+    x = torch.from_numpy((0.3 * sig.hilbert(m) / 2).astype(np.complex64)).to(DEV)
+    blocks = _split(x, N_SSB)
+    w = kwarm.warmup_for(agc_alpha=0.01)
+    chunk = kwarm.chunk_for(w)
+    n_out = N_SSB * 48 // 2000
+    ys = {}
+    for exact in (False, True):
+        name = "exact" if exact else "chunked"
+        rx = SSBReceiver(SSBConfig(), N_SSB, exact=exact, device=DEV)
+        # chunked: one launch over the lanes, one exact re-run of the
+        # padded last chunk's warmup and tail (24,000 = 6 x 3840 + 960)
+        launches = 1 if exact else 1 + bool(n_out % chunk)
+        outs, (agc,) = _run_chain(f"ssb {name}", rx, blocks, {"agc_scan": launches},
+                                  [(agc_scan, "agc_exact" if exact else "agc_chunked", 1)])
+        args, out = agc[0]
+        ref = kagc.agc_apply(*args) if exact else kagc.agc_apply_chunked(*args)
+        _compare(f"ssb {name} agc_scan L={args[2].shape[1]}", out, ref)
+        ys[name] = torch.cat(outs).cpu().numpy()
+        timings[f"ssb {name}"] = (rx, blocks, N_SSB)
+    lsb = SSBReceiver(SSBConfig(band="lsb"), N_SSB, device=DEV)
+    y_lsb = torch.cat([lsb(b) for b in blocks]).cpu().numpy()
+    h = len(y_lsb) // 2
+    for name, y in ys.items():
+        _check(f"ssb {name}: USB voice, usb over lsb receiver power (settled half), dB",
+               10 * np.log10(np.mean(y[h:] ** 2) / np.mean(y_lsb[h:] ** 2)), 30.0)
+    _check("ssb chunked vs exact (settled half), dB", snr_db(ys["exact"][h:], ys["chunked"][h:]),
+           60.0)
+    one = SSBReceiver(SSBConfig(), 2 * N_SSB, device=DEV)(torch.cat(blocks[:2])).cpu().numpy()
+    _check("ssb chunked two 1M blocks vs one 2M block (past the first 1000), dB",
+           snr_db(one[1000:], ys["chunked"][1000:len(one)]), 60.0)
+
+
+def time_receivers(timings):
+    """Each path's block time (medians of 5 after a warm-up block, host
+    clock with a synchronise and CUDA events), samples/s per card, and one
+    profiler window over a block (profile_block)."""
+    out = {}
+    for path, (rx, blocks, n) in timings.items():
+        cyc = (blocks * 2)[:6]
+        med, spread = _block_times(rx, cyc)
+        dev_ms = _block_device_ms(rx, cyc)
+        prof = profile_block(rx, cyc)
+        out[path] = {"host_ms": med * 1e3, "host_spread": spread, "cuda_event_ms": dev_ms,
+                     "samples_per_s": n / med, "profile": prof}
+        log(f"timing: {path} {n}-sample block: median {med * 1e3:.3f} ms of 5 (spread "
+            f"{spread * 100:.1f}%), CUDA events median {dev_ms:.3f} ms, "
+            f"{n / med / 1e6:.1f} Msamp/s; profiler window: {json.dumps(prof)}")
+    return out
+
+
+def tap_count(Tre, Tim) -> int:
+    """The taps the function has: the (channel, k, d) positions of the
+    blocked (C, Kc, D1) taps where Tre or Tim is not zero (the blocked
+    layout pads each channel's taps with zeros to whole frames)."""
+    nz = Tre != 0 if Tim is None else (Tre != 0) | (Tim != 0)
+    return int(nz.sum())
+
+
+def time_bank_front(case):
+    """The bank front at bank16's 8M-sample c64 shape (16 channels of 128
+    complex taps, blocked 13 x 10, 800,000 outputs) by CUDA events: the
+    kernel (cuda/halo_async.cfir), one strided conv1d and the wide f32
+    matmul (TF32 off; both on [halo | x], the concatenation timed with
+    them); and halo_async's bound there."""
+    import torch
+    from tpudsp_torch.cuda import halo_async
+    from tpudsp_torch.kernels import decimate as kdec
+    x, halo, Tre, Tim, D1, nj = case
+    forms = {"kernel": lambda: halo_async.cfir(x, halo, Tre, Tim, D1, nj),
+             "conv": lambda: _conv_front(x, halo, Tre, Tim, D1, nj),
+             "wide": lambda: kdec.strided_cfir_matmul_wide(torch.cat([halo, x]), Tre, Tim, D1, nj)}
+    out = {name: _cuda_ms(f, 10) for name, f in forms.items()}
+    C, taps = Tre.shape[0], tap_count(Tre, Tim)
+    nbytes = (x.numel() + halo.numel()) * x.element_size() + taps * 8 + nj * C * 8
+    out["taps"] = taps
+    out["bound_ms"] = max(nbytes / HBM_BPS, 8.0 * taps * nj / F32_FLOPS) * 1e3
+    log(f"timing: bank16 front end, 8M c64 samples, C={C} taps {taps} nj={nj}: kernel "
+        f"{out['kernel']:.4f} ms, conv {out['conv']:.4f} ms, wide {out['wide']:.4f} ms, "
+        f"bound {out['bound_ms']:.4f} ms")
+    return out
+
+
+def phase_receivers():
+    """The bank, WBFM and SSB chains at full width: each kernel of their
+    paths held against its plain version on the card, each chain against
+    the float64 FM-bank oracle and the JAX package's functional pins, the
+    launches per block asserted, and each path's block time."""
+    timings: dict = {}
+    receivers_bank16(timings)
+    receivers_mixed(timings)
+    receivers_wbfm(timings)
+    receivers_ssb(timings)
+    res = time_receivers(timings)
+    res["bank16 front ms"] = time_bank_front(results.pop("bank_front"))
+    log(f"timing: receivers: {json.dumps(res)}")
+
+
 RADIO_STAGES = ("bandpass", "resample", "agc", "am", "audio_filter")
 
 
@@ -1574,9 +1998,12 @@ def _block_device_ms(rx, blocks):
 def profile_block(rx, blocks):
     """One torch.profiler window (CPU and CUDA activity) over rx(blocks[1])
     after a warm-up call on blocks[0]: the device activities (kernels,
-    copies, sets) in the window, their busy time (the union of their
-    intervals) and its share of the window, from the first event to the
-    last, and the device time of the five busiest kernels by name."""
+    copies, sets; not the host's spans) in the window, their busy time
+    (the union of their intervals) and its share of the window, from the
+    first event to the last, and the device time of the eight busiest
+    kernels by name. The window can miss device activities (on the H100
+    machine: the bank block's front kernel, the AM block's front matmul
+    in the timing phase), so its busy time is a lower bound."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1586,8 +2013,11 @@ def profile_block(rx, blocks):
         rx(blocks[1])
         torch.cuda.synchronize()
     events = list(prof.events())
-    dev = sorted((e.time_range.start, e.time_range.end) for e in events
-                 if e.device_type == DeviceType.CUDA)
+    # the device's own activities: a record_function span (ReceiverBank.step)
+    # also shows on the device's timeline, under its host-side name
+    host = {e.name for e in events if e.device_type != DeviceType.CUDA}
+    on_dev = [e for e in events if e.device_type == DeviceType.CUDA and e.name not in host]
+    dev = sorted((e.time_range.start, e.time_range.end) for e in on_dev)
     busy, end = 0.0, float("-inf")
     for t0, t1 in dev:      # the union of the device intervals
         if t1 > end:
@@ -1596,13 +2026,14 @@ def profile_block(rx, blocks):
     span = (max(e.time_range.end for e in events)
             - min(e.time_range.start for e in events)) if events else 0.0
     by_name: dict = {}
-    for e in events:
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    for e in on_dev:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    # a list, not a dict keyed by a cut name: template instances of one
+    # kernel share their first characters
     return {"device_activities": len(dev), "busy_ms": busy / 1e3, "window_ms": span / 1e3,
             "busy_share": busy / span if span else None,
-            "top_kernels_ms": {k[:60]: v / 1e3 for k, v in top}}
+            "top_kernels_ms": [[k[:100], v / 1e3] for k, v in top]}
 
 
 def profile_am_block():
@@ -1704,12 +2135,12 @@ def time_halo_async(calls):
         C = Tre.shape[0]
         s = snr_db(Y.cpu().numpy(), y_conv.cpu().numpy())
         library_ms = _cuda_ms(conv, 20)
-        win = Tre.shape[1] * D1
-        # real taps: 2 multiplies and 2 adds per tap, channel and output
-        # (4 B a tap); complex: 8 (8 B a tap)
+        taps = tap_count(Tre, Tim)
+        # real taps: 2 multiplies and 2 adds per tap and output (4 B a
+        # tap); complex: 8 (8 B a tap)
         per_tap = 4 if Tim is None else 8
-        nbytes = (x.numel() + tail.numel()) * x.element_size() + win * C * per_tap // 2 + nj * C * 8
-        ops = float(per_tap) * C * win * nj
+        nbytes = (x.numel() + tail.numel()) * x.element_size() + taps * per_tap + nj * C * 8
+        ops = float(per_tap) * taps * nj
         call_ms = calls[f"halo_async {label} call"]
         log(f"timing: halo_async {label}: wrapper call {call_ms:.4f} ms, its two launches "
             f"alone {calls[f'halo_async {label} launches']:.4f} ms, conv1d {library_ms:.4f} ms "
@@ -1864,7 +2295,8 @@ def phase_timing():
 
 PHASES = [("build", phase_build), ("kernel", phase_kernel), ("chain", phase_chain),
           ("width", phase_width), ("sharded", phase_sharded), ("compat", phase_compat),
-          ("options", phase_options), ("surface", phase_surface), ("timing", phase_timing)]
+          ("options", phase_options), ("surface", phase_surface),
+          ("receivers", phase_receivers), ("timing", phase_timing)]
 
 KERNELS = [
     ("am_front_scan", "tpudsp_torch/csrc/am_front_scan.cu",

@@ -24,10 +24,17 @@ time-sharded on torch.distributed (``parallel.ShardedAMReceiver``), with
 the async-halo front end as the CUDA kernel ``csrc/halo_async.cu``. Their
 DC trackers, de-emphasis and FMStereo's pilot smoothers are the blocked
 first-order scan ``csrc/first_order_scan.cu`` (the AM receiver's whole
-linear tail in one launch; a complex64 entry for the pilot). Everything
-runs on the card ("cuda") unless the caller asks for the CPU.
+linear tail in one launch; a complex64 entry for the pilot). The other
+receiver chains: the multi-channel bank (``chains.bank.ReceiverBank``,
+its front end one halo_async launch on one card), WBFM mono and stereo
+(``chains.wbfm``) and the SSB receiver (``chains.ssb``). Everything runs
+on the card ("cuda") unless the caller asks for the CPU.
 """
 
-from .chains.am import AMConfig, AMReceiver  # noqa: F401
+from .chains import (  # noqa: F401
+    AMConfig, AMReceiver, BankConfig, ReceiverBank, SSBConfig, SSBReceiver,
+    WBFMStereoReceiver, mono_receiver,
+)
 
-__all__ = ["AMConfig", "AMReceiver"]
+__all__ = ["AMConfig", "AMReceiver", "BankConfig", "ReceiverBank", "SSBConfig",
+           "SSBReceiver", "WBFMStereoReceiver", "mono_receiver"]

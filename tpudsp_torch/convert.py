@@ -4,7 +4,9 @@
 ``AMState`` with ``np.asarray`` and makes the port's tensors from it, so a
 stream can move from a ``tpudsp`` receiver to a ``tpudsp_torch`` one
 mid-flight; ``sharded_am_from_jax`` does it for a JAX
-``ShardedAMReceiver``'s taps and ``SAMState``. ``op_state_from_jax`` does
+``ShardedAMReceiver``'s taps and ``SAMState``; ``bank_from_jax``,
+``stereo_from_jax`` and ``ssb_from_jax`` for a ``ReceiverBank``, a
+``WBFMStereoReceiver`` and an ``SSBReceiver``. ``op_state_from_jax`` does
 the same for an op of the
 reference class surface: it turns a ``tpudsp.compat`` op's ``.state`` (a
 host numpy pytree) into the state of its ``tpudsp_torch.compat`` twin,
@@ -17,8 +19,11 @@ from __future__ import annotations
 import numpy as np
 
 from .chains.am import AMParams, AMState
+from .chains.bank import BankParams, BankState
+from .chains.ssb import SSBParams, SSBState
+from .chains.wbfm import StereoParams, StereoState
 from .kernels.agc import AgcParams, AgcState
-from .kernels.am_backend import FrontState
+from .kernels.am_backend import AmBackendParams, FrontState
 from .kernels.ampmodem import AmpDemodState
 from .kernels.hilbert import C2RState, DecimState, InterpState
 from .kernels.pll import PllState, StereoPilotState
@@ -86,3 +91,45 @@ def sharded_am_from_jax(taps, state, device="cuda"):
                           front=op_state_from_jax(state.front, device),
                           dc=_t(state.dc, device),
                           deemph=_t(state.deemph, device))
+
+
+def _named(T, obj, device, **given):
+    """The port's NamedTuple ``T`` from a JAX one read field by field: the
+    fields in ``given`` as they are, every other leaf as
+    ``op_state_from_jax`` converts it (uint32 to int64, None kept)."""
+    return T(*(given[f] if f in given else op_state_from_jax(getattr(obj, f), device)
+               for f in T._fields))
+
+
+def bank_from_jax(params, state, device="cuda"):
+    """JAX ``BankParams``, ``BankState`` (a ReceiverBank's ``params`` and
+    ``state``) -> the port's on ``device``: leaf for leaf with dtypes kept,
+    the uint32 ``dtheta``, ``phase`` and ``n0`` as int64, the coherent AM
+    back end's linear coefficients as Python floats, as the port keeps
+    them."""
+    amb = params.amb
+    if amb is not None:
+        amb = _named(AmBackendParams, amb, device,
+                     agc=_named(AgcParams, amb.agc, device),
+                     **{f: float(np.asarray(getattr(amb, f)))
+                        for f in ("dc_rho", "deemph_b0", "deemph_a")})
+    return (_named(BankParams, params, device, amb=amb),
+            _named(BankState, state, device))
+
+
+def stereo_from_jax(params, state, device="cuda"):
+    """A JAX ``WBFMStereoReceiver``'s ``_params`` (the tuple h1, h2, h_aud,
+    dtheta, b0, a) and ``state`` (``StereoState``) -> the port's
+    ``StereoParams`` (the pilot increment a host int) and ``StereoState``
+    on ``device``."""
+    h1, h2, h_aud, dtheta, b0, a = params
+    t = lambda v: _t(v, device)
+    return (StereoParams(t(h1), t(h2), t(h_aud), int(np.asarray(dtheta)), t(b0), t(a)),
+            _named(StereoState, state, device))
+
+
+def ssb_from_jax(params, state, device="cuda"):
+    """JAX ``SSBParams``, ``SSBState`` (an SSBReceiver's ``params`` and
+    ``state``) -> the port's on ``device``, leaf for leaf."""
+    return (_named(SSBParams, params, device, agc=_named(AgcParams, params.agc, device)),
+            _named(SSBState, state, device))

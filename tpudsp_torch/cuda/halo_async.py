@@ -18,14 +18,19 @@ the wrapper
 4. launches the kernel over the boundary outputs [0, S) with the received
    halo.
 
+``cfir`` is the single-card entry the receiver bank's front end takes
+(``chains/bank.bank_step``): one launch over all outputs, with the
+block-carried tail as the halo and no exchange.
+
 This is how a TPU kernel's in-kernel remote copy translates to Hopper:
 the collective runs outside the kernel. On the TPU the last shard routes
 the block-carried tail round the ring to shard 0; here every rank holds
 the carried state, so rank 0 reads it directly.
 
 Dispatch: CPU tensors take the plain version (``bank_front_async_ref``:
-the same exchange, blocking, then ``cfir_ref``); CUDA tensors launch the
-kernel or raise. There is no fallback from one to the other.
+the same exchange, blocking, then ``cfir_ref``; ``cfir_ref`` for
+``cfir``); CUDA tensors launch the kernel or raise. There is no fallback
+from one to the other.
 """
 
 from __future__ import annotations
@@ -33,8 +38,6 @@ from __future__ import annotations
 import torch
 
 from ..kernels import decimate as kdec
-from ..parallel import halo as phalo
-from ..parallel.mesh import TIME_AXIS
 from . import launch
 
 KERNEL = "halo_async"
@@ -100,20 +103,30 @@ def _launch(x, halo, taps, y, D1: int, j_begin: int, j_end: int):
 _launch.launches = 0
 
 
+def _ring(axis_name):
+    """The sharded runtime's halo exchange and the ring's axis, imported
+    here so that the single-card entry ``cfir`` (the receiver bank's)
+    leaves ``tpudsp_torch.parallel`` unloaded."""
+    from ..parallel import halo as phalo
+    from ..parallel.mesh import TIME_AXIS
+    return phalo, TIME_AXIS if axis_name is None else axis_name
+
+
 def bank_front_async(iq_loc, tail, Tre, Tim, D1: int, nj: int, mesh,
-                     axis_name: str = TIME_AXIS):
+                     axis_name: str | None = None):
     """iq_loc: (n_loc,) complex64, or a raw (n_loc, 2) int16 / uint8 wire
     slice (Tre/Tim then carry the wire scale; uint8 is centred by 127.5 on
     load); tail: the matching (halo_len,) / (halo_len, 2) block-carried
     fill for rank 0; Tre/Tim: (C, Kc, D1) blocked correlation-order taps,
     ``Tim`` None for real taps (the kernel then skips the zero products);
-    mesh: the (channel, time) mesh. Returns y (C, nj) complex64, as the JAX
-    wrapper. Where JAX takes the axis size, the mesh gives it; the Pallas
+    mesh: the (channel, time) mesh; axis_name: the ring's axis (None: the
+    mesh's time axis). Returns y (C, nj) complex64, as the JAX wrapper. Where JAX takes the axis size, the mesh gives it; the Pallas
     tile has no counterpart (``boundary`` sets the split). The kernel on
     CUDA tensors, ``bank_front_async_ref`` on CPU ones."""
     if iq_loc.device.type == "cpu":
         return bank_front_async_ref(iq_loc, tail, Tre, Tim, D1, nj, mesh,
                                     axis_name)
+    phalo, axis_name = _ring(axis_name)
     C, Kc, D1_ = Tre.shape
     if D1_ != D1:
         raise ValueError(f"{KERNEL}: taps blocked by {D1_}, not D1 = {D1}")
@@ -127,6 +140,23 @@ def bank_front_async(iq_loc, tail, Tre, Tim, D1: int, nj: int, mesh,
         _launch(iq_loc, tail, taps, y, D1, S, nj)  # interior, halo not read
     halo = phalo.wait(pending, tail).contiguous()
     _launch(iq_loc, halo, taps, y, D1, 0, S)
+    return y
+
+
+def cfir(x, halo, Tre, Tim, D1: int, nj: int):
+    """y (C, nj) of X = [halo | x | pad] on one card: one launch over
+    outputs [0, nj), the halo read in place. x: (n,) complex64 or a raw (n,
+    2) int16 / uint8 block (uint8 centred by 127.5 on load); halo: the
+    matching block-carried tail; Tre/Tim: (C, Kc, D1) blocked
+    correlation-order taps (``Tim`` None for real taps), packed once per
+    taps tensor. The kernel on CUDA tensors, ``cfir_ref`` on CPU ones."""
+    if x.device.type == "cpu":
+        return cfir_ref(x, halo, Tre, Tim, D1, nj)
+    C, _, D1_ = Tre.shape
+    if D1_ != D1:
+        raise ValueError(f"{KERNEL}: taps blocked by {D1_}, not D1 = {D1}")
+    y = torch.empty((C, nj), dtype=torch.complex64, device=x.device)
+    _launch(x.contiguous(), halo.contiguous(), pack_taps(Tre, Tim), y, D1, 0, nj)
     return y
 
 
@@ -159,9 +189,10 @@ def cfir_ref(x, halo, Tre, Tim, D1: int, nj: int):
 
 
 def bank_front_async_ref(iq_loc, tail, Tre, Tim, D1: int, nj: int, mesh,
-                         axis_name: str = TIME_AXIS):
+                         axis_name: str | None = None):
     """The plain PyTorch version of ``bank_front_async``: the same
     exchange, waited on at once, then ``cfir_ref``. Runs on any device; it
     launches no kernel."""
+    phalo, axis_name = _ring(axis_name)
     halo = phalo.left_halo_rows(iq_loc, tail.shape[0], mesh, tail, axis_name)
     return cfir_ref(iq_loc, halo, Tre, Tim, D1, nj)

@@ -5,6 +5,7 @@ here are the plain versions of the CUDA kernels in ``cuda/``;
 ``cuda/pll_scan`` and its DC tracker's through ``cuda/first_order``."""
 
 import torch
+import torch.nn.functional as F
 
 
 def f32_matmul(a, b):
@@ -12,3 +13,11 @@ def f32_matmul(a, b):
     AM chain its 100 dB pin, so it is switched off before every product."""
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.matmul(a, b)
+
+
+def f32_conv1d(x, w, stride: int = 1):
+    """``F.conv1d(x, w, stride=stride)`` (a cross-correlation, as lax.conv in
+    "VALID" mode) in full float32: cuDNN runs float32 convolutions in TF32
+    unless told otherwise, so that is switched off before every call."""
+    torch.backends.cudnn.allow_tf32 = False
+    return F.conv1d(x, w, stride=stride)

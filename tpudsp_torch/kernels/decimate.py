@@ -24,7 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import f32_matmul
+from . import f32_conv1d, f32_matmul
 
 
 def plan_phase_taps(taps_per_phase: np.ndarray, Q: int):
@@ -185,3 +185,54 @@ def strided_cfir_matmul_wide_u8(X2, Tre, Tim, Q: int, nj: int):
     sre = 127.5 * Tre.reshape(C, -1).sum(1)
     sim = 127.5 * Tim.reshape(C, -1).sum(1)
     return _complex_cols(Y[:, :C] - (sre - sim), Y[:, C:] - (sre + sim))
+
+
+# --------------------------------------------------------------------------
+# The JAX package's CPU form of the bank front end (port of
+# ``_cfir_conv_core`` and ``strided_cfir_conv{,_i16,_u8}``): the same
+# y[c, j] = sum_k X[j*Q + k] T_c[k] as the wide matmul above, as one strided
+# convolution. The bank runs the CUDA kernel csrc/halo_async.cu
+# (``cuda/halo_async.cfir``); these forms are what it is held against.
+
+
+def _cfir_conv_core(xr, xi, Tre, Tim, Q: int, nj: int):
+    """xr/xi: (L,) f32 input planes with L >= (nj + Kc - 1) * Q. The
+    complex product packed as 2C real output features of one strided
+    convolution (f32, TF32 off): y_r = xr*tr - xi*ti, y_i = xr*ti + xi*tr.
+    Returns (yr, yi) each (C, nj) f32."""
+    C, Kc, Q_ = Tre.shape
+    K1 = Kc * Q_
+    L = (nj + Kc - 1) * Q_
+    lhs = torch.stack([xr[:L], xi[:L]])[None]               # (1, 2, L)
+    tr = Tre.reshape(C, K1)
+    ti = Tim.reshape(C, K1)
+    rhs = torch.cat([torch.stack([tr, -ti], 1),
+                     torch.stack([ti, tr], 1)], 0)           # (2C, 2, K1)
+    Y = f32_conv1d(lhs, rhs, Q_)[0]                          # (2C, nj)
+    return Y[:C], Y[C:]
+
+
+def strided_cfir_conv(X, Tre, Tim, Q: int, nj: int):
+    """The wide matmul's contract as one strided convolution. X: (L,)
+    complex64. Returns (C, nj) complex64."""
+    Xr = torch.view_as_real(X.to(torch.complex64))
+    yr, yi = _cfir_conv_core(Xr[:, 0], Xr[:, 1], Tre, Tim, Q, nj)
+    return torch.complex(yr, yi)
+
+
+def strided_cfir_conv_i16(X2, Tre, Tim, Q: int, nj: int):
+    """Raw (L, 2) int16 wire samples; the taps carry the 1/32767 scale."""
+    yr, yi = _cfir_conv_core(X2[:, 0].float(), X2[:, 1].float(), Tre, Tim, Q, nj)
+    return torch.complex(yr, yi)
+
+
+def strided_cfir_conv_u8(X2, Tre, Tim, Q: int, nj: int):
+    """Raw (L, 2) uint8 RTL-SDR samples, value (b - 127.5)/127.5: the taps
+    carry 1/127.5, and the -127.5 offset is a per-channel complex DC term
+    from the tap sums, subtracted after the product (the wide path's
+    algebra)."""
+    C = Tre.shape[0]
+    yr, yi = _cfir_conv_core(X2[:, 0].float(), X2[:, 1].float(), Tre, Tim, Q, nj)
+    sre = 127.5 * Tre.reshape(C, -1).sum(1)
+    sim = 127.5 * Tim.reshape(C, -1).sum(1)
+    return torch.complex(yr - (sre - sim)[:, None], yi - (sre + sim)[:, None])
