@@ -8,8 +8,8 @@ CUDA toolkit. ``--parent DIR`` names a checkout of an earlier commit (its
 files unpacked, e.g. by ``git archive``): the run then also holds pll_scan
 bit for bit against DIR's kernel, built from DIR's source, and, in a second
 process with DIR's package, times one AM block, counts its launches and
-times first_order_scan's and halo_async's calls (``--profile-root DIR``
-alone prints that report and exits). Phases,
+times first_order_scan's, halo_async's and biquad_scan's calls
+(``--profile-root DIR`` alone prints that report and exits). Phases,
 each of which fails the run (exit code 1, no final result line) if it
 fails:
 
@@ -57,14 +57,18 @@ fails:
                 float64 (>= 130 dB);
               biquad_scan: CLowpassIIR(order=8, Fc=0.0075, mode="scan")'s
                 cascade on 2^18 complex64 samples, the cheby2 order-8
-                config and BroadcastAM's DC block at 7, 32, 33 samples and
-                the tile edges from random carried states (complex and
-                real rows), three chained calls, and both designs against
-                float64 at 65,536 samples (>= 120 dB);
-              the stream's shared scratch: three rounds of biquad_scan,
-                the complex64 call, real rows and linear_tail_scan back to
-                back from denormal states, bit for bit, every flag slot
-                holding 0 or an epoch used on the stream;
+                config and BroadcastAM's DC block at 1 and 7 samples and
+                at biquad_scan's own edges (kernels/iir's SOS_L-sample
+                block, SOS_TILE-sample tile and SOS_WINDOW-tile fold
+                window: L - 1, L, L + 1, T - 1, T, T + 1, 2T + 5, WT - 1,
+                WT, WT + 1, 2WT + 5) from random carried states (complex
+                and real rows), three chained calls across a window, and
+                both designs against float64 at 65,536 samples (>= 120 dB);
+              the stream's shared scratch: three rounds of biquad_scan
+                (over two fold windows), the complex64 call, real rows and
+                linear_tail_scan (over four of their tiles) back to back
+                from denormal states, bit for bit, every flag slot holding
+                0 or an epoch used on the stream;
               halo_async: the async-halo front end on a 1x1 mesh at the AM
                 shape (a 4M-sample c64 shard, the AM design's 3 phases of
                 24 x 125 offset-folded real taps, also with an nj that 8
@@ -146,7 +150,9 @@ fails:
               halo_async's wrapper calls at their shapes and halo_async's
               launches alone (also for --parent's package), and
               halo_async's against one torch.nn.functional.conv1d call,
-              TF32 off.
+              TF32 off; biquad_scan's call at its main shape and at
+              BroadcastAM's DC block (6291 real samples, 2 sections), each
+              with its bound (also for --parent's package).
 
 Phases 3-9 also count the kernels' launches on their path (the counts set
 to 0 just before it, read just after) and fail on another count:
@@ -208,8 +214,9 @@ TILE_FO = 256 * 32          # samples of one tile of first_order_scan's carry sc
 # f32 operations per sample, row and section that the SOS cascade needs:
 # one double-float step (125 as biquad_scan.cu writes it, 101 with the
 # splits of the constant coefficients made on the host and those of x and
-# v0.hi made once) and the output (3); the kernel's second pass over each
-# block is its algorithm's cost, not the function's
+# v0.hi made once) and the output (3); the kernel's scan and the products
+# that give each sample's state from its block's entry are its
+# algorithm's cost, not the function's
 OPS_BIQUAD = 104
 N_SURFACE = 1 << 18         # the classes' block: the README's callback
 N_ORACLE = 65_536           # the prefix held against the float64 oracles
@@ -336,6 +343,24 @@ def _cuda_ms(fn, reps: int) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def _device_ms(fn, part: str, reps: int) -> float:
+    """Mean device time (ms) of the kernels whose name holds ``part``,
+    over ``reps`` calls of fn after a warm-up call, by torch.profiler: the
+    kernel alone, where a CUDA-event time of a short call is the host's."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ts = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == DeviceType.CUDA and part in e.name]
+    return sum(ts) / len(ts) / 1e3 if ts else float("nan")
 
 
 # --------------------------------------------------------------------------
@@ -1085,11 +1110,21 @@ def dc_block_sos():
     return iirdes.iirdes_sos("cheby2", "highpass", 3, 20.0 / 48000.0, Ap=0.5, As=20.0)
 
 
+def biquad_edges():
+    """Lengths at biquad_scan's own edges: its block of L samples, its tile
+    of T and its fold window of W tiles (kernels/iir's SOS_L, SOS_TILE,
+    SOS_WINDOW), and 1 and 7."""
+    from tpudsp_torch.kernels import iir as kiir
+    L, T = kiir.SOS_L, kiir.SOS_TILE
+    WT = kiir.SOS_WINDOW * T
+    return (1, 7, L - 1, L, L + 1, T - 1, T, T + 1, 2 * T + 5, WT - 1, WT, WT + 1, 2 * WT + 5)
+
+
 def kernel_biquad():
     """biquad_scan's cases, each bit for bit against its plain version
     (kernels/iir.sos_apply_df) on the same card: the main shape, lengths at
-    a block and at the tile edges, real and complex rows, carried states,
-    chained calls; and the cascade against float64."""
+    its block, tile and fold-window edges, real and complex rows, carried
+    states, chained calls; and the cascade against float64."""
     import torch
     from tpudsp_torch.cuda import biquad_scan as bq
     from tpudsp_torch.design import iirdes
@@ -1110,27 +1145,26 @@ def kernel_biquad():
 
     # the main shape: CLowpassIIR(order=8, Fc=0.0075, mode="scan") on the
     # README's 2^18-sample callback of complex64
-    sos = clowpass_scan_sos()
-    x = signal(N_SURFACE, True, 21)
-    st = torch.zeros((len(sos), 2), dtype=torch.complex64, device=DEV)
+    _, sos, st, x = biquad_cases()[0]
     ref, plain_ms = timed(lambda: kiir.sos_apply_df(tab(sos), st, x))
     err = _compare_exact(f"biquad_scan CLowpassIIR order 8 c64 n={N_SURFACE}",
                          bq.sos_apply_df(tab(sos), st, x), ref)
     _record("biquad_scan", err, plain_ms)
-    results["inputs"]["biquad"] = (tab(sos), st, x)
-    # block and tile edges, real and complex rows, random carried states
-    for k, n in enumerate((7, 32, 33, TILE_FO - 1, TILE_FO, TILE_FO + 1, 2 * TILE_FO + 5)):
+    # biquad_scan's own block, tile and fold-window edges, real and complex
+    # rows, random carried states
+    for k, n in enumerate(biquad_edges()):
         for cplx, design, name in ((True, hard, "cheby2 order 8"),
                                    (False, dc_block_sos(), "DC block")):
             xs, s0 = signal(n, cplx, 30 + k), state(design, cplx)
             _compare_exact(f"biquad_scan {name} {'c64' if cplx else 'f32'} n={n}",
                            bq.sos_apply_df(tab(design), s0, xs),
                            kiir.sos_apply_df(tab(design), s0, xs))
-    # chained calls carrying the state
-    xs = signal(7 + TILE_FO + 1 + 2 * TILE_FO + 5, True, 40)
+    # chained calls carrying the state, the last across a fold window
+    T, WT = kiir.SOS_TILE, kiir.SOS_WINDOW * kiir.SOS_TILE
+    xs = signal(7 + T + 1 + WT + 5, True, 40)
     ks = rs = state(hard, True)
     kout, rout = [], []
-    for a, b in ((0, 7), (7, 7 + TILE_FO + 1), (7 + TILE_FO + 1, xs.shape[0])):
+    for a, b in ((0, 7), (7, 7 + T + 1), (7 + T + 1, xs.shape[0])):
         ks, ky = bq.sos_apply_df(tab(hard), ks, xs[a:b])
         rs, ry = kiir.sos_apply_df(tab(hard), rs, xs[a:b])
         kout += [ks, ky]
@@ -1194,13 +1228,16 @@ def kernel_shared_chain():
     a state decaying through silence leaves in the links, values whose bits
     read as small integers, like the epochs): each bit for bit against its
     plain version, and after each round every flag slot of the buffer holds
-    0 or an epoch this stream has used, never a value."""
+    0 or an epoch this stream has used, never a value. biquad_scan runs
+    over 3 tiles past one fold window (tile and window links), the others
+    over 3 tiles of first_order_scan's and 5 samples."""
     import torch
     from tpudsp_torch.cuda import biquad_scan as bq
     from tpudsp_torch.cuda import first_order as fo
     from tpudsp_torch.cuda import launch
     from tpudsp_torch.kernels import iir as kiir
     n = 3 * TILE_FO + 5
+    nb = (kiir.SOS_WINDOW + 3) * kiir.SOS_TILE + 5
     sos = clowpass_scan_sos()
     tab = torch.from_numpy(kiir.sos_table(sos)).to(DEV)
     tiny = lambda x: torch.from_numpy(np.asarray(x * np.float32(1e-43))).to(DEV)   # 71 ulps
@@ -1208,19 +1245,21 @@ def kernel_shared_chain():
     p = tail_params(True)
     for r in range(3):
         x = tiny(noise_c64(n, 70 + r))
+        xb = tiny(noise_c64(nb, 85 + r))
         xr = tiny(noise_c64(3 * n, 73 + r).real.reshape(3, n).copy())
         v0 = tiny(noise_c64(2 * len(sos), 76 + r).reshape(len(sos), 2))
         y0 = tiny(noise_c64(1, 79 + r)[0])
         c0 = tiny(noise_c64(3, 82 + r).real.copy())
         t0, t1 = tiny(np.float32(1.0)), tiny(np.float32(-2.0))
-        k = [bq.sos_apply_df(tab, v0, x), fo.first_order_apply_blocked_c64(*rho, y0, x),
+        k = [bq.sos_apply_df(tab, v0, xb), fo.first_order_apply_blocked_c64(*rho, y0, x),
              fo.first_order_apply_blocked(*rho, c0, xr), _flat(fo.linear_tail(p, t0, t1, xr[0]))]
-        ref = [kiir.sos_apply_df(tab, v0, x), kiir.first_order_apply_blocked_c64(*rho, y0, x),
+        ref = [kiir.sos_apply_df(tab, v0, xb), kiir.first_order_apply_blocked_c64(*rho, y0, x),
                kiir.first_order_apply_blocked(*rho, c0, xr),
                _flat(kiir.linear_tail(p, t0, t1, xr[0]))]
-        for name, kk, rr in zip(("biquad_scan", "first_order_scan c64", "first_order_scan rows",
-                                 "linear_tail_scan"), k, ref):
-            _compare_exact(f"shared scratch round {r}: {name} n={n} denormal", kk, rr)
+        for name, kk, rr in zip((f"biquad_scan n={nb}", f"first_order_scan c64 n={n}",
+                                 f"first_order_scan rows n={n}", f"linear_tail_scan n={n}"),
+                                k, ref):
+            _compare_exact(f"shared scratch round {r}: {name} denormal", kk, rr)
         torch.cuda.synchronize()
         dev = x.device
         scratch, _, epoch = launch._chains[(dev, launch.stream(dev))]
@@ -2049,16 +2088,42 @@ def profile_am_block():
             "cuda_event_ms": _block_device_ms(rx, blocks), **profile_block(rx, blocks)}
 
 
-def kernel_call_times():
-    """CUDA-event times (ms) of first_order_scan and halo_async, with
-    whatever tpudsp_torch is imported (this tree's, or --profile-root's):
-    first_order_scan by the wrapper's call (linear_tail at n = 96000, one
-    recurrence at n = 96000 and at the AMRadio callback's 6291), and
-    halo_async at the AM and bank shapes by the wrapper's call and by its
-    two launches alone (taps packed and output allocated beforehand). Uses
-    only entry points that the package has had since halo_async's port."""
+def biquad_cases():
+    """biquad_scan's two shapes: (label, design, state, x) for CLowpassIIR(
+    order=8, Fc=0.0075, mode="scan") on a 2^18-sample complex64 callback
+    (its main shape) and BroadcastAM's DC block on the callback's 6291 real
+    samples, from zero states."""
     import torch
-    from tpudsp_torch.cuda import first_order, halo_async
+    sos, dc = clowpass_scan_sos(), dc_block_sos()
+    xr = noise_c64(N_CALLBACK_OUT, 22).real + 1.0
+    return [(f"CLowpassIIR c64 n={N_SURFACE}", sos,
+             torch.zeros((len(sos), 2), dtype=torch.complex64, device=DEV),
+             torch.from_numpy(noise_c64(N_SURFACE, 21)).to(DEV)),
+            (f"DC block f32 n={N_CALLBACK_OUT}", dc, torch.zeros((len(dc), 2), device=DEV),
+             torch.from_numpy(xr.astype(np.float32)).to(DEV))]
+
+
+def biquad_bound(sos, x):
+    """(bytes, operations) that biquad_scan's function needs: x in, y out,
+    OPS_BIQUAD a sample, row and section."""
+    rows = 2 if x.is_complex() else 1
+    return x.numel() * x.element_size() * 2, x.shape[0] * rows * len(sos) * OPS_BIQUAD
+
+
+def kernel_call_times():
+    """CUDA-event times (ms) of first_order_scan, halo_async and
+    biquad_scan, with whatever tpudsp_torch is imported (this tree's, or
+    --profile-root's): first_order_scan by the wrapper's call (linear_tail
+    at n = 96000, one recurrence at n = 96000 and at the AMRadio callback's
+    6291), halo_async at the AM and bank shapes by the wrapper's call and
+    by its two launches alone (taps packed and output allocated
+    beforehand), and biquad_scan at biquad_cases' shapes (the table made
+    beforehand) by the wrapper's call and its kernel's device time. Uses
+    only entry points that the package has had since biquad_scan's
+    port."""
+    import torch
+    from tpudsp_torch.cuda import biquad_scan, first_order, halo_async
+    from tpudsp_torch.kernels import iir as kiir
     from tpudsp_torch.parallel import make_mesh
     vr = first_order_inputs(N_OUT_4M, seed=1)
     tp = tail_params(True)
@@ -2081,6 +2146,11 @@ def kernel_call_times():
         out[f"halo_async {label} call"] = _cuda_ms(
             lambda: halo_async.bank_front_async(*case, mesh), 20)
         out[f"halo_async {label} launches"] = _cuda_ms(launches, 20)
+    for label, sos, st, xb in biquad_cases():
+        tab = torch.from_numpy(kiir.sos_table(sos)).to(DEV)
+        call = lambda: biquad_scan.sos_apply_df(tab, st, xb)
+        out[f"biquad_scan {label}"] = _cuda_ms(call, 20)
+        out[f"biquad_scan {label} device"] = _device_ms(call, "biquad_scan_kernel", 20)
     return out
 
 
@@ -2176,7 +2246,7 @@ def phase_timing():
     log(f"timing: profiler and block times, AMReceiver c64 4M-sample block: "
         f"{json.dumps(prof)}")
     calls = kernel_call_times()
-    log(f"timing: first_order_scan and halo_async times: {json.dumps(calls)}")
+    log(f"timing: first_order_scan, halo_async and biquad_scan times: {json.dumps(calls)}")
     if PARENT:
         # the same with the parent's package, in a process of its own
         res = subprocess.run([sys.executable, str(Path(__file__).resolve()),
@@ -2184,7 +2254,7 @@ def phase_timing():
                              capture_output=True, text=True, timeout=600)
         line = res.stdout.strip().splitlines()[-1:] if res.returncode == 0 else []
         log(f"timing: profiler and block times, the parent's AMReceiver c64 4M-sample "
-            f"block, and its first_order_scan and halo_async times: "
+            f"block, and its first_order_scan, halo_async and biquad_scan times: "
             f"{line[0] if line else 'failed: ' + res.stderr[-2000:]}")
         if not line:
             raise AssertionError("the parent's timing process failed")
@@ -2258,14 +2328,20 @@ def phase_timing():
              "agc_scan": (_cuda_ms(lambda: agc_scan._launch(ap, ast, are, aim, an, AGC_WARMUP),
                                    10), AGC_WARMUP + AGC_CHUNK)}
     time_halo_async(calls)
-    # biquad_scan at its main shape: CLowpassIIR(order=8, Fc=0.0075,
-    # mode="scan") on 2^18 complex64 samples, 4 sections of 2 rows
-    from tpudsp_torch.cuda import biquad_scan
-    tab, bst, bx = results["inputs"]["biquad"]
-    k["biquad_scan"]["ms"] = _cuda_ms(lambda: biquad_scan.sos_apply_df(tab, bst, bx), 20)
-    rows = 2 if bx.is_complex() else 1
-    bound("biquad_scan", bx.numel() * bx.element_size() * 2,
-          bx.shape[0] * rows * tab.shape[0] * OPS_BIQUAD)
+    # biquad_scan at its main shape (CLowpassIIR(order=8, Fc=0.0075,
+    # mode="scan") on 2^18 complex64 samples, 4 sections of 2 rows) and at
+    # BroadcastAM's DC block (6291 real samples, 2 sections)
+    (main, sos, _, bx), (dc_label, dc, _, dx) = biquad_cases()
+    k["biquad_scan"]["ms"] = calls[f"biquad_scan {main}"]
+    bound("biquad_scan", *biquad_bound(sos, bx))
+    nbytes, ops = biquad_bound(dc, dx)
+    dc_bound = max(nbytes / HBM_BPS, ops / F32_FLOPS) * 1e3
+    for label, bound_ms in ((main, k["biquad_scan"]["bound_ms"]), (dc_label, dc_bound)):
+        ms, dev_ms = calls[f"biquad_scan {label}"], calls[f"biquad_scan {label} device"]
+        log(f"timing: biquad_scan {label}: wrapper call {ms:.4f} ms, kernel on the device "
+            f"{dev_ms:.4f} ms, bound {bound_ms:.7f} ms, {dev_ms / bound_ms:.1f}x by the device")
+    log(f"timing: biquad_scan {dc_label} (BroadcastAM's DC block): bound bytes "
+        f"{nbytes / HBM_BPS * 1e3:.7f} ms, operations {ops / F32_FLOPS * 1e3:.7f} ms")
     # the complex64 call at FMStereo's pilot smoother shape (2^18 samples)
     ab, cyp, cx = results["inputs"]["c64"]
     k["first_order_scan_c64"]["ms"] = _cuda_ms(
@@ -2320,10 +2396,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description="Drive tpudsp_torch on one CUDA device.")
     ap.add_argument("--parent", type=Path, help="a checkout of an earlier commit to hold "
                     "pll_scan's bits, the AM block's launches and times, and "
-                    "first_order_scan's and halo_async's times against")
+                    "first_order_scan's, halo_async's and biquad_scan's times against")
     ap.add_argument("--profile-root", type=Path, help="print one AM block's times and "
-                    "profiler window, and first_order_scan's and halo_async's call times, "
-                    "with the package under this checkout, and exit")
+                    "profiler window, and first_order_scan's, halo_async's and biquad_scan's "
+                    "call times, with the package under this checkout, and exit")
     args = ap.parse_args()
     if not (ROOT / "tpudsp_torch" / "csrc").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository "

@@ -7,8 +7,12 @@ version of csrc/first_order_scan.cu's complex64 entry), on the CPU:
 - the cascade against the float64 sample-serial SosFilterOracle on the
   JAX package's hard config (cheby2 order 8, Fc 0.0075): >= 120 dB, its
   bar (measured 148.8 dB on 20,000 samples); against tpudsp's
-  sos_apply_df; block invariance >= 100 dB (measured 144.8 dB); the tile
-  edges and BroadcastAM's near-unit-pole DC block against float64;
+  sos_apply_df; block invariance >= 100 dB (measured 144.8 dB); the
+  block, tile and fold-window edges of csrc/biquad_scan.cu's geometry
+  (SOS_L, SOS_TILE, SOS_WINDOW) and BroadcastAM's near-unit-pole DC block
+  against float64;
+- the host table: its head is ``sos_split_df``'s values, its powers
+  numpy.linalg.matrix_power's, split;
 - the complex one-pole against its JAX twin, whose block carry is plain
   complex64 (the gap pinned), and against float64;
 - the wrappers on CPU tensors: the plain versions' bits, no launch; on a
@@ -63,9 +67,23 @@ def test_split_equals_tpudsp(which):
     np.testing.assert_array_equal(tab[:, 0], A_hi[:, 0, 0])
     np.testing.assert_array_equal(tab[:, 3], A_lo[:, 1, 0])
     np.testing.assert_array_equal(tab[:, 8], b0)
-    # A^(L m) at m = 0 is the identity, split exactly
-    pw = tab[:, tiir.SOS_HEAD:].reshape(len(sos), 8, -1)[..., 0]
-    np.testing.assert_array_equal(pw, np.tile([1, 0, 0, 0, 0, 0, 1, 0], (len(sos), 1)))
+    np.testing.assert_array_equal(tab[:, 9:tiir.SOS_HEAD], 0)
+    # the powers: A^(L m), A^k, A^(T m) in the table's order, each split
+    L, T = tiir.SOS_L, tiir.SOS_TILE
+    ks = [*(L * m for m in range(tiir.SOS_TB)), *range(1, L + 1),
+          *(T * m for m in range(tiir.SOS_WINDOW))]
+    assert len(ks) == tiir.SOS_NPOW
+    assert tiir.SOS_SAMPLE_POW + 1 == tiir.SOS_TB and ks[tiir.SOS_TILE_POW + 1] == T
+    pw = tab[:, tiir.SOS_HEAD:].reshape(len(sos), 4, 2, tiir.SOS_NPOW)
+    for s, (_, _, _, _, a1, a2) in enumerate(np.asarray(sos, np.float64)):
+        A = np.array([[-a1, 1.0], [-a2, 0.0]])
+        P = np.stack([np.linalg.matrix_power(A, k) for k in ks]).reshape(-1, 4).T
+        hi = P.astype(np.float32)
+        np.testing.assert_array_equal(pw[s, :, 0], hi)
+        np.testing.assert_array_equal(pw[s, :, 1], (P - hi).astype(np.float32))
+    # A^0 is the identity, split exactly
+    np.testing.assert_array_equal(pw[..., 0].reshape(len(sos), 8),
+                                  np.tile([1, 0, 0, 0, 0, 0, 1, 0], (len(sos), 1)))
 
 
 def test_hard_config_vs_oracle():
@@ -97,13 +115,32 @@ def test_block_invariance():
     assert snr_db(y_full, y_cat) > 100.0
 
 
-@pytest.mark.parametrize("n", [32, 33, 8191, 8193, 16389])
+_L, _T = tiir.SOS_L, tiir.SOS_TILE
+
+
+@pytest.mark.parametrize("n", [1, _L - 1, _L, _L + 1, 32, 33, _T - 1, _T, _T + 1, 2 * _T + 5,
+                               8191, 8193, 16389])
 def test_block_and_tile_edges_vs_oracle(n):
-    """Lengths at one block of 32 and one tile of 8192 samples, real and
-    carried state over two calls: >= 120 dB against float64."""
+    """Lengths at the kernel's block of SOS_L and tile of SOS_TILE samples
+    (and at 32 / 8192, first_order_scan's), real, carried state over two
+    calls: >= 120 dB against float64."""
     x = _x(2 * n, cplx=False, seed=n)
     _, y = _run(HARD, x, pieces=[n])
     assert snr_db(SosFilterOracle(HARD)(x), y) > 120.0
+
+
+@pytest.mark.parametrize("which", ["hard", "dc_block"])
+def test_rows_across_fold_windows_vs_oracle(which):
+    """A first call longer than one fold window of SOS_WINDOW tiles (its
+    tiles' entries folded in two windows, handed from one to the next),
+    then a second from the carried state: >= 120 dB against float64."""
+    sos = HARD if which == "hard" else DC_BLOCK
+    n = tiir.SOS_WINDOW * tiir.SOS_TILE + 2 * tiir.SOS_TILE + 5
+    x = _x(n + 3000, cplx=False, seed=9)
+    if which == "dc_block":
+        x = (x * 0.1 + 1.0).astype(np.float32)
+    _, y = _run(sos, x, pieces=[n])
+    assert snr_db(SosFilterOracle(sos)(x), y) > 120.0
 
 
 def test_near_unit_pole_dc_block_vs_oracle():

@@ -38,12 +38,16 @@ def sos_apply_df(tab, state, x):
     launch.check(KERNEL, "x", x, dt, (n,), dev)
     launch.check(KERNEL, "table", tab, torch.float32, (S, kiir.SOS_WIDTH), dev)
     launch.check(KERNEL, "state", state, dt, (S, 2), dev)
+    if tab.data_ptr() % 16:
+        raise ValueError(f"{KERNEL}: table must start on a 16-byte boundary")
     rows, rs, cs = (2, 1, 2) if cplx else (1, n, 1)
     y = torch.empty_like(x)
     last = torch.empty_like(state)
-    tiles = -(-n // (kiir.TILE_BLOCKS * kiir.L_BLOCK))
+    tiles = -(-n // kiir.SOS_TILE)
+    windows = -(-tiles // kiir.SOS_WINDOW)
     stream = launch.stream(dev)
-    scratch, base, epoch = launch.chain(dev, stream, S * rows * tiles, rows * tiles)
+    # a link per section, row and tile (its aggregate) and window (its entry)
+    scratch, base, epoch = launch.chain(dev, stream, S * rows * (tiles + windows), rows * tiles)
     launch.launch(KERNEL, dev, tab, x, state, y, last, scratch, S, rows, n, rs, cs, base,
                   epoch, on=stream)
     sos_apply_df.launches += 1

@@ -233,13 +233,38 @@ def first_order_apply_blocked_c64(b0: float, a: float, y_prev, x):
 # Transposed direct form II per biquad (b0, b1, b2, 1, a1, a2) as the state
 # recurrence v[n] = A v[n-1] + c x[n], A = [[-a1, 1], [-a2, 0]], c = [b1 -
 # a1 b0, b2 - a2 b0], y[n] = b0 x[n] + v[n-1][0], every value of v a
-# double-float pair. Blocks of L samples run from a zero entry; a
-# log-depth scan of the blocks' affine maps v -> A^L v + S[b] within tiles
-# of TILE_BLOCKS blocks and one step from tile to tile give each block's
-# entry; each block then runs again from its entry and writes y.
+# double-float pair. Per section:
+#   1. each block of SOS_L samples runs from a zero entry, keeping its
+#      local states v_loc[i]; its last is S[b], the constant of the
+#      block's affine map v -> A^L v + S[b];
+#   2. a log-depth scan of the S[b] within each tile of SOS_TB blocks; the
+#      tile's last value is its aggregate P_t (its map v -> A^T v + P_t);
+#   3. windows of SOS_WINDOW tiles: tile j of a window folds the
+#      aggregates of the tiles before it in the window in a fixed order
+#      (``_window_fold``), F_j = sum_{k<j} A^(T (j-1-k)) P_k, and takes
+#      E_t = A^(T j) E_w + F_j from the window's entry E_w; the window's
+#      last tile hands the next window E_w' = A^T E_t + P_t, from E_0 =
+#      (v_prev, 0);
+#   4. the block entries E[0] = E_t, E[b] = A^(L b) E_t + P[b-1]; then each
+#      sample's state without a second pass, v[i] = A^(i+1) E[b] +
+#      v_loc[i]: y[i] = b0 x[i] + v[i-1][0] needs only row 0 of A^i, and
+#      the whole state is made at the row's last sample only.
+# The powers come from float64, split by the host (``sos_table``). Every
+# product's error term is the exact one, as a fused multiply-add gives it
+# (``_prod``), where the JAX package's Dekker split gives the same value
+# wherever neither factor's split underflows.
 
-SOS_HEAD = 16                              # a section's coefficients in its table row
-SOS_WIDTH = SOS_HEAD + 8 * (TILE_BLOCKS + 1)
+SOS_L = 16              # samples a block: one thread's chain
+SOS_TB = 128            # blocks a tile: the kernel's threads
+SOS_TILE = SOS_L * SOS_TB
+SOS_WINDOW = SOS_TB     # tiles a fold window: one a thread of the kernel
+SOS_HEAD = 16           # a section's coefficients in its table row
+# a section's powers, in this order: A^(L m) for m = 0..SOS_TB-1, A^k for
+# k = 1..SOS_L, A^(SOS_TILE m) for m = 0..SOS_WINDOW-1
+SOS_NPOW = SOS_TB + SOS_L + SOS_WINDOW
+SOS_SAMPLE_POW = SOS_TB - 1              # A^k at SOS_SAMPLE_POW + k
+SOS_TILE_POW = SOS_TB + SOS_L            # A^(T m) at SOS_TILE_POW + m
+SOS_WIDTH = SOS_HEAD + 8 * SOS_NPOW
 
 
 def sos_init(sos: np.ndarray, dtype=torch.float32, device=None):
@@ -261,36 +286,61 @@ def sos_split_df(sos64: np.ndarray):
     return (*_split(A64), *_split(c64), b0.astype(np.float32))
 
 
+def sos_powers(a1: float, a2: float) -> np.ndarray:
+    """A section's powers of A = [[-a1, 1], [-a2, 0]] in float64, (SOS_NPOW,
+    2, 2), in the table's order (see SOS_NPOW), each by
+    numpy.linalg.matrix_power."""
+    A = np.array([[-a1, 1.0], [-a2, 0.0]])
+    ks = [*(SOS_L * m for m in range(SOS_TB)), *range(1, SOS_L + 1),
+          *(SOS_TILE * m for m in range(SOS_WINDOW))]
+    return np.stack([np.linalg.matrix_power(A, k) for k in ks])
+
+
 def sos_table(sos64: np.ndarray) -> np.ndarray:
     """The host table of an SOS cascade, (S, SOS_WIDTH) f32: per section
     -a1, -a2, c0, c1 as (hi, lo) pairs and b0 (``sos_split_df``'s values),
-    zeros to SOS_HEAD, then the block powers A^(L m), m = 0..TILE_BLOCKS
-    (L = L_BLOCK), float64 matrix powers split as 8 arrays of
-    TILE_BLOCKS + 1 (entries [0, 0], [0, 1], [1, 0], [1, 1], each hi then
-    lo)."""
-    L, tb = L_BLOCK, TILE_BLOCKS
+    zeros to SOS_HEAD, then ``sos_powers`` split as 8 arrays of SOS_NPOW
+    (entries [0, 0], [0, 1], [1, 0], [1, 1], each hi then lo)."""
     A_hi, A_lo, c_hi, c_lo, b0 = sos_split_df(sos64)
     sos64 = np.asarray(sos64, np.float64)
     tab = np.zeros((len(sos64), SOS_WIDTH), np.float32)
     for s, (_, _, _, _, a1, a2) in enumerate(sos64):
         tab[s, :9] = [A_hi[s, 0, 0], A_lo[s, 0, 0], A_hi[s, 1, 0], A_lo[s, 1, 0],
                       c_hi[s, 0], c_lo[s, 0], c_hi[s, 1], c_lo[s, 1], b0[s]]
-        AL = np.linalg.matrix_power(np.array([[-a1, 1.0], [-a2, 0.0]]), L)
-        P = np.empty((tb + 1, 2, 2))
-        P[0] = np.eye(2)
-        for m in range(tb):
-            P[m + 1] = P[m] @ AL
-        hi, lo = _split(P.reshape(tb + 1, 4).T)
+        hi, lo = _split(sos_powers(a1, a2).reshape(SOS_NPOW, 4).T)
         tab[s, SOS_HEAD:] = np.stack([hi, lo], 1).reshape(-1)
     return tab
 
 
-def _mv(M, p, q):
-    """M p + q in double-float: M a 2x2 matrix as its entries (a, b, c, d),
-    p and q 2-vectors, each value a (hi, lo) pair."""
+def _prod(a, b):
+    """The exact product a b = p + e of f32 tensors, e as one fused
+    multiply-add rounds it (the kernel's __fmaf_rn(a, b, -p)): a b is
+    exact in float64, so is a b - p, and the f32 cast rounds it once."""
+    p = a * b
+    return p, (a.double() * b.double() - p.double()).float()
+
+
+def _dmul(x, y):
+    """``_df_mul`` with the product by ``_prod``."""
+    ph, pe = _prod(x[0], y[0])
+    return _df_renorm(ph, pe + (x[0] * y[1] + x[1] * y[0]))
+
+
+def _mul(M, p):
+    """M p in double-float: M a 2x2 matrix as its entries (a, b, c, d), p a
+    2-vector, each value a (hi, lo) pair."""
     a, b, c, d = M
-    return (_df_add(_df_add(_df_mul(a, p[0]), _df_mul(b, p[1])), q[0]),
-            _df_add(_df_add(_df_mul(c, p[0]), _df_mul(d, p[1])), q[1]))
+    return (_df_add(_dmul(a, p[0]), _dmul(b, p[1])),
+            _df_add(_dmul(c, p[0]), _dmul(d, p[1])))
+
+
+def _add(p, q):
+    return _df_add(p[0], q[0]), _df_add(p[1], q[1])
+
+
+def _mv(M, p, q):
+    """M p + q in double-float."""
+    return _add(_mul(M, p), q)
 
 
 def _vmap(fn, *vs):
@@ -302,80 +352,118 @@ def _biquad_step(co, v, x):
     """One double-float step v <- A v + c x of a section; co = (-a1, -a2,
     c0, c1) as (hi, lo) pairs."""
     m00, m10, c0, c1 = co
-    u0 = _two_prod(c0[0], x)
+    u0 = _prod(c0[0], x)
     u0 = _df_renorm(u0[0], u0[1] + c0[1] * x)
-    u1 = _two_prod(c1[0], x)
+    u1 = _prod(c1[0], x)
     u1 = _df_renorm(u1[0], u1[1] + c1[1] * x)
-    return (_df_add(_df_add(_df_mul(m00, v[0]), v[1]), u0),
-            _df_add(_df_mul(m10, v[0]), u1))
+    return (_df_add(_dmul(m00, v[0]), _df_add(v[1], u0)),
+            _df_add(_dmul(m10, v[0]), u1))
 
 
 def _biquad_tile_scan(power, S, run: int = WARP):
-    """``_tile_scan`` for the biquad's block maps: the inclusive scan of the
-    block constants S (a 2-vector of (..., tb) pairs) within each tile,
-    with ``power(m)``, the matrix A^(L m)."""
-    def levels(p, stride):
-        d = 1
-        while d < p[0][0].shape[-1]:
-            q = _vmap(lambda t: t[..., :-d], p)
-            new = _mv(power(d * stride), q, _vmap(lambda t: t[..., d:], p))
-            p = _vmap(lambda t, u: torch.cat([t[..., :d], u], -1), p, new)
-            d *= 2
-        return p
-
+    """The inclusive scan of the block constants S (a 2-vector of (...,
+    tb) pairs) within each tile, with ``power(m)``, the matrix A^(L m), as
+    the kernel's warps run it: Kogge-Stone within each run of ``run``
+    blocks; the scan of the runs' last values T_r in order, C_0 = T_0, C_r
+    = A^(L run) C_(r-1) + T_r; then each block of run r > 0 adds A^(L
+    (l+1)) C_(r-1) (l: its place in the run)."""
     shape = S[0][0].shape
-    runs = _vmap(lambda t: t.reshape(*shape[:-1], shape[-1] // run, run), S)
-    p = levels(runs, 1)
-    w = levels(_vmap(lambda t: t[..., -1], p), run)
+    p = _vmap(lambda t: t.reshape(*shape[:-1], shape[-1] // run, run), S)
+    d = 1
+    while d < run:
+        q = _vmap(lambda t: t[..., :-d], p)
+        new = _mv(power(d), q, _vmap(lambda t: t[..., d:], p))
+        p = _vmap(lambda t, u: torch.cat([t[..., :d], u], -1), p, new)
+        d *= 2
+    c = [_vmap(lambda t: t[..., 0, -1], p)]
+    for r in range(1, shape[-1] // run - 1):
+        c.append(_mv(power(run), c[-1], _vmap(lambda t: t[..., r, -1], p)))
+    w = _vmap(lambda *ts: torch.stack(ts, -1), *c)
     lane = torch.arange(1, run + 1, device=S[0][0].device)
-    c = _mv(power(lane), _vmap(lambda t: t[..., :-1, None], w),
-            _vmap(lambda t: t[..., 1:, :], p))
+    c = _mv(power(lane), _vmap(lambda t: t[..., None], w), _vmap(lambda t: t[..., 1:, :], p))
     return _vmap(lambda t, u: torch.cat([t[..., :1, :], u], -2).reshape(shape), p, c)
+
+
+def _window_fold(power, Pt, run: int = WARP):
+    """The fold of step 3 for every tile: F_j = sum_{k<j} A^(T (j-1-k))
+    P_k over the tiles k of its window, in the kernel's order: its thread
+    k makes term k (0 for k >= j); each warp adds its run of 32 in the tree
+    of its shuffles (at d = 16, 8, 4, 2, 1 lane l < d takes its value +
+    lane l + d's); thread 0 adds the warps' sums in order, ((w0 + w1) +
+    w2) + .... ``power(m)``: A^(T m); Pt: the aggregates, (R, windows, W)
+    pairs. Returns F, (R, windows, W) pairs."""
+    W = SOS_WINDOW
+    j = torch.arange(W, device=Pt[0][0].device)
+    m = j[:, None] - 1 - j[None, :]                 # (tile j, thread k)
+    terms = _mul(power(m.clamp(min=0)), _vmap(lambda t: t[..., None, :], Pt))
+    terms = _vmap(lambda t: torch.where(m >= 0, t, torch.zeros_like(t))
+                  .reshape(*t.shape[:-1], W // run, run), terms)
+    d = run // 2
+    while d:
+        terms = _add(_vmap(lambda t: t[..., :d], terms), _vmap(lambda t: t[..., d:2 * d], terms))
+        d //= 2
+    f = _vmap(lambda t: t[..., 0, 0], terms)
+    for w in range(1, W // run):
+        f = _add(f, _vmap(lambda t: t[..., w, 0], terms))
+    return f
 
 
 def _biquad_rows(tab, v0, X):
     """One section over the rows X (R, n) f32 from the f32 states v0 (2,
     R), as the kernel runs it. Returns (v_last (2, R), y (R, n))."""
-    L, tb = L_BLOCK, TILE_BLOCKS
+    L, tb, W, T = SOS_L, SOS_TB, SOS_WINDOW, SOS_TILE
     R, n = X.shape
-    B = -(-n // L)
-    nt = -(-B // tb)
-    Xb = torch.nn.functional.pad(X, (0, nt * tb * L - n)).reshape(R, nt * tb, L)
+    nt = -(-n // T)
+    nw = -(-nt // W)
+    dev = X.device
+    Xb = torch.nn.functional.pad(X, (0, nt * T - n)).reshape(R, nt, tb, L)
     co = tuple((tab[2 * k], tab[2 * k + 1]) for k in range(4))
     b0 = tab[8]
-    pw = tab[SOS_HEAD:].reshape(8, tb + 1)
+    pw = tab[SOS_HEAD:].reshape(8, SOS_NPOW)
 
     def power(m):
         return tuple((pw[2 * e, m], pw[2 * e + 1, m]) for e in range(4))
 
+    # 1. each block from a zero entry: v_loc[i][0] of every sample, and the
+    # whole state at the row's last sample
     zero = torch.zeros_like(Xb[..., 0])
     v = ((zero, zero), (zero, zero))
-    for i in range(L):                  # each block from a zero entry
+    loc = []
+    last_i = (n - 1) % L
+    for i in range(L):
         v = _biquad_step(co, v, Xb[..., i])
-    P = _biquad_tile_scan(power, _vmap(lambda t: t.reshape(R, nt, tb), v))
-    # the entries, tile by tile from v0
+        loc.append(v[0])
+        if i == last_i:
+            v_end = v
+    # 2. the scan within each tile
+    P = _biquad_tile_scan(power, v)
+    # 3. the fold within each window and the windows' chain of entries
+    Pt = _vmap(lambda t: torch.nn.functional.pad(t[..., -1], (0, nw * W - nt))
+               .reshape(R, nw, W), P)
+    F = _window_fold(lambda m: power(SOS_TILE_POW + m), Pt)
     e = ((v0[0], torch.zeros_like(v0[0])), (v0[1], torch.zeros_like(v0[1])))
-    E = _vmap(lambda t: torch.empty_like(t), P)
-    mb = power(torch.arange(1, tb, device=X.device))
-    for t in range(nt):
-        Et = _vmap(lambda u: u[:, t], E)
-        for (dst_h, dst_l), (h, l) in zip(Et, e):
-            dst_h[:, 0], dst_l[:, 0] = h, l
-        rest = _mv(mb, _vmap(lambda u: u[:, None], e), _vmap(lambda u: u[:, t, :-1], P))
-        for (dst_h, dst_l), (h, l) in zip(Et, rest):
-            dst_h[:, 1:], dst_l[:, 1:] = h, l
-        e = _mv(power(tb), e, _vmap(lambda u: u[:, t, -1], P))
-    v = _vmap(lambda t: t.reshape(R, nt * tb), E)
+    tile_pow = power(SOS_TILE_POW + torch.arange(W, device=dev))
+    Et = []
+    for w in range(nw):
+        Ew = _mv(tile_pow, _vmap(lambda t: t[:, None], e), _vmap(lambda t: t[:, w], F))
+        Et.append(Ew)
+        if w + 1 < nw:
+            e = _mv(power(SOS_TILE_POW + 1), _vmap(lambda t: t[:, -1], Ew),
+                    _vmap(lambda t: t[:, w, -1], Pt))
+    Et = _vmap(lambda *ts: torch.cat(ts, 1)[:, :nt, None], *Et)
+    # 4. the block entries, then each sample from its block's entry
+    rest = _mv(power(torch.arange(1, tb, device=dev)), Et, _vmap(lambda t: t[..., :-1], P))
+    E = _vmap(lambda t, u: torch.cat([t, u], -1), Et, rest)
     Y = torch.empty_like(Xb)
-    V = Xb.new_empty((2, R, nt * tb, L))
-    for i in range(L):                  # each block again from its entry
-        xi = Xb[..., i]
-        prev = v[0][0] + v[0][1]
-        v = _biquad_step(co, v, xi)
-        Y[..., i] = b0 * xi + prev
-        V[0, ..., i] = v[0][0] + v[0][1]
-        V[1, ..., i] = v[1][0] + v[1][1]
-    return V.reshape(2, R, -1)[..., n - 1], Y.reshape(R, -1)[:, :n]
+    Y[..., 0] = b0 * Xb[..., 0] + (E[0][0] + E[0][1])
+    for i in range(1, L):
+        a, b, _, _ = power(SOS_SAMPLE_POW + i)
+        prev = _df_add(_df_add(_dmul(a, E[0]), _dmul(b, E[1])), loc[i - 1])
+        Y[..., i] = b0 * Xb[..., i] + (prev[0] + prev[1])
+    blk = (n - 1) // L
+    at = lambda t: t.reshape(R, nt * tb)[:, blk]
+    vl = _mv(power(SOS_SAMPLE_POW + last_i + 1), _vmap(at, E), _vmap(at, v_end))
+    return torch.stack([vl[0][0] + vl[0][1], vl[1][0] + vl[1][1]]), Y.reshape(R, -1)[:, :n]
 
 
 def sos_apply_df(tab, state, x):
