@@ -139,7 +139,31 @@ fails:
               against one of double length (> 60 dB); each path's block
               time, samples/s and a profiler window, and the bank front
               at bank16's shape: the kernel, conv1d and the wide matmul;
-10. timing -- per-format block time of the AM receiver (host clock and CUDA
+10. channelizer -- BASELINE config 4 at full width (bench.py:506-539):
+              ChannelizedBankConfig(), 1024 channels of 12 taps a branch at
+              100 Msps, blocks of 1024 x 16384 samples. pfb_branch bit for
+              bit against its plain version (kernels/pfb) at the block's
+              shape in c64 / i16 / u8, os 1 and 2, at one frame, around the
+              carried tail's length and behind the first block's tail; the
+              column carry (the transpose and a first_order_scan launch of
+              rows) bit for bit against kernels/iir.
+              first_order_apply_blocked_mc at (16384, 1024) and at 1 ...
+              16385 frames. Paths, each with its
+              launches a block: the FM bank in c64 / i16 / u8 (and the c64
+              of the i16 / u8 values) on three blocks, os = 2 and the 'conv'
+              engine, envelope AM, coherent AM on all 1024 channels and a
+              mixed fm / coherent am bank (backend 'kernel', the coherent
+              launch bit for bit against front_chunked_ref). Y of the 16
+              carriers' channels against the float64 oracle
+              (tests/oracle/bank_oracle.channelizer_f64, >= 120 dB), the FM
+              audio against its discriminator and de-emphasis (>= 100),
+              i16 / u8 against c64 (>= 90), 'conv' against 'shift' (>=
+              110), the AM carriers DC-free and on their tones, the mixed
+              bank's FM rows against the FM bank's (>= 100); each path's
+              block time, pfb_branch's call, launch alone and device time
+              against its bound and conv1d, the column carry against the
+              rows launch alone;
+11. timing -- per-format block time of the AM receiver (host clock and CUDA
               events), per-mode block time of the sharded receiver,
               per-callback time of the AMRadio (median of 5 with spread),
               one torch.profiler window over a c64 block (kernel launches
@@ -154,7 +178,7 @@ fails:
               BroadcastAM's DC block (6291 real samples, 2 sections), each
               with its bound (also for --parent's package).
 
-Phases 3-9 also count the kernels' launches on their path (the counts set
+Phases 3-10 also count the kernels' launches on their path (the counts set
 to 0 just before it, read just after) and fail on another count:
 first_order_scan once per AMReceiver block, twice per ShardedAMReceiver
 block (the DC tracker's rows and the de-emphasis) and per AMRadio callback
@@ -163,7 +187,9 @@ kernel, per block or call (AM_OPTIONS, phase_surface, the receivers'
 per-block counts: bank halo_async 1 and first_order_scan 1, the mixed
 bank also am_front_scan 2 and first_order_scan 1 more, stereo
 first_order_scan 1 and first_order_scan_c64 2, SSB agc_scan 2 chunked
-and 1 exact).
+and 1 exact; in phase 10 pfb_branch 1 a block but for the 'conv' engine,
+the FM bank first_order_scan_mc 1, envelope AM first_order_scan 1,
+coherent and mixed am_front_scan 1 and first_order_scan 2).
 
 Prints the card's name and power limit first, and again (with the torch,
 CUDA and Python versions) just before a "kernels" JSON line, which comes
@@ -1271,18 +1297,21 @@ def kernel_shared_chain():
 
 
 COUNTED = ("am_front_scan", "agc_scan", "pll_scan", "first_order_scan",
-           "first_order_scan_c64", "biquad_scan", "halo_async")
+           "first_order_scan_c64", "first_order_scan_mc", "biquad_scan", "halo_async",
+           "pfb_branch")
 
 
 def _counters():
     """Every kernel wrapper's launch counter, by kernel name: (object,
     attribute holder)."""
-    from tpudsp_torch.cuda import agc_scan, biquad_scan, first_order, halo_async, pll_scan
+    from tpudsp_torch.cuda import agc_scan, biquad_scan, first_order, halo_async, pfb, pll_scan
     from tpudsp_torch.cuda import am_backend_scan as scan
     return {"am_front_scan": scan._launch, "agc_scan": agc_scan._launch,
             "pll_scan": pll_scan._launch, "first_order_scan": first_order._launch,
             "first_order_scan_c64": first_order.first_order_apply_blocked_c64,
-            "biquad_scan": biquad_scan.sos_apply_df, "halo_async": halo_async._launch}
+            "first_order_scan_mc": first_order.first_order_apply_blocked_mc,
+            "biquad_scan": biquad_scan.sos_apply_df, "halo_async": halo_async._launch,
+            "pfb_branch": pfb.branch_accumulate}
 
 
 def zero_counts():
@@ -1676,7 +1705,7 @@ def bank_oracle_f64(rx, iq, channels):
         cfg.kd, *iirdes.deemphasis_coeffs(cfg.audio_rate))
 
 
-def _run_chain(path: str, rx, blocks, per_block: dict, records=()):
+def _run_chain(path: str, rx, blocks, per_block: dict, records=(), phase: str = "receivers"):
     """rx over blocks on the card, its launches counted (the counts set to
     0 just before, read just after) and held to per_block x len(blocks);
     ``records``: (module, name, keep) to record during the run. Returns
@@ -1688,17 +1717,17 @@ def _run_chain(path: str, rx, blocks, per_block: dict, records=()):
         zero_counts()                                  # the path starts
         outs = [rx(b) for b in blocks]
         torch.cuda.synchronize()
-        expect_counts(f"receivers {path}", read_counts(),   # ... and ends
+        expect_counts(f"{phase} {path}", read_counts(),   # ... and ends
                       {k: len(blocks) * v for k, v in per_block.items()})
     if not all(bool(torch.isfinite(o).all()) for o in outs):
-        raise AssertionError(f"receivers {path}: output not finite")
+        raise AssertionError(f"{phase} {path}: output not finite")
     return outs, rec
 
 
-def _check(what: str, value: float, bar: float):
-    log(f"receivers: {what}: {value:.2f} (bar {bar:g})")
+def _check(what: str, value: float, bar: float, phase: str = "receivers"):
+    log(f"{phase}: {what}: {value:.2f} (bar {bar:g})")
     if not value > bar:
-        raise AssertionError(f"receivers: {what} {value:.2f}, bar {bar:g}")
+        raise AssertionError(f"{phase}: {what} {value:.2f}, bar {bar:g}")
 
 
 def _conv_front(x, halo, Tre, Tim, D1, nj):
@@ -1987,6 +2016,338 @@ def phase_receivers():
     res = time_receivers(timings)
     res["bank16 front ms"] = time_bank_front(results.pop("bank_front"))
     log(f"timing: receivers: {json.dumps(res)}")
+
+
+# BASELINE config 4 (bench.py:506-539): ChannelizedBankConfig(), 1024
+# channels of 12 taps a branch at 100 Msps, blocks of 1024 x 16384 samples
+N_PFB = 1024 * 16384
+PFB_FS = 100e6
+# the carriers' channels: 12 FM (even) and 4 AM (odd); an empty channel
+# holds only the prototype's stopband leakage, 60-90 dB below a carrier, so
+# the 16 channels held against the float64 oracle are these
+PFB_FM = (2, 100, 160, 256, 400, 480, 600, 776, 830, 900, 990, 1020)
+PFB_AM = (51, 333, 513, 701)
+PFB_DEV = 20_000.0          # the FM carriers' peak deviation (Hz)
+PFB_AM_TONES = (1000.0, 2500.0)
+N_PFB_ORACLE = 1 << 22      # the block's prefix held against the float64 oracle
+PFB_SETTLE = 256            # frames of block 0 left out: the u8 tail starts at 127, not 127.5
+
+
+def pfb_signal(nblocks: int, seed: int, amp: float = 0.05):
+    """PFB_FM's FM carriers (PFB_DEV, a tone of 300 + 100 k Hz) and
+    PFB_AM's 50% AM carriers (PFB_AM_TONES in turn, 15 Hz off the channel
+    centre), each at ``amp``, made in float64 on the card at 100 Msps over
+    ``nblocks`` blocks of N_PFB. Returns complex128."""
+    import torch
+    rng = np.random.default_rng(seed)
+    t = torch.arange(nblocks * N_PFB, dtype=torch.float64, device=DEV)
+    x = torch.zeros(t.shape[0], dtype=torch.complex128, device=DEV)
+    w = lambda f: 2 * np.pi * f / PFB_FS
+    for k, c in enumerate(PFB_FM):
+        fm_hz = 300.0 + 100.0 * k
+        ph = 2 * np.pi * c / 1024 * t + PFB_DEV / fm_hz * torch.sin(w(fm_hz) * t)
+        x += torch.polar(torch.full_like(t, amp), ph + float(rng.uniform(0, 2 * np.pi)))
+    for k, c in enumerate(PFB_AM):
+        env = amp * (1.0 + 0.5 * torch.sin(w(PFB_AM_TONES[k % 2]) * t))
+        x += torch.polar(env, (2 * np.pi * c / 1024 + w(15.0)) * t
+                         + float(rng.uniform(0, 2 * np.pi)))
+    return x
+
+
+def _wire_noise(n: int, fmt: str, seed: int):
+    """n random wire samples of ``fmt`` on the card: complex64 noise, or
+    raw (n, 2) int16 / uint8 over their whole range."""
+    import torch
+    rng = np.random.default_rng(seed)
+    if fmt == "c64":
+        v = (rng.standard_normal(n) + 1j * rng.standard_normal(n)) * 0.3
+        return torch.from_numpy(v.astype(np.complex64)).to(DEV)
+    lo, hi, dt = (-32767, 32768, np.int16) if fmt == "i16" else (0, 256, np.uint8)
+    return torch.from_numpy(rng.integers(lo, hi, (n, 2)).astype(dt)).to(DEV)
+
+
+def kernel_pfb():
+    """pfb_branch bit for bit against kernels/pfb.branch_accumulate on the
+    card at config 4's taps: the 16.8M-sample block behind a random tail
+    (c64, i16, u8; os 1 and 2), blocks of one frame and of whole frames
+    around the tail's length htail = T C - 1 ((T - 1) C, T C, (T + 1) C),
+    and a second block fed from the first block's tail."""
+    import torch
+    from tpudsp_torch.chains import channelizer as tch
+    from tpudsp_torch.cuda import pfb
+    from tpudsp_torch.kernels import pfb as kpfb
+    cfg = tch.ChannelizerConfig()
+    C, T = cfg.nchan, cfg.taps_per_branch
+    htail = (T - 1) * C + C - 1
+    wire = wire_of(pfb_signal(1, seed=30))
+    for k, fmt in enumerate(("c64", "i16", "u8")):
+        Ht, _ = tch.build(cfg, fmt, device=DEV)
+        tail = _wire_noise(htail, fmt, 40 + k)
+        x = wire[fmt]
+        for os_ in (1, 2):
+            ku = pfb.branch_accumulate(Ht, tail, x, os_)
+            ru, plain_ms = timed(lambda: kpfb.branch_accumulate(Ht, tail, x, os_))
+            err = _compare_exact(f"pfb_branch config 4 {fmt} os={os_} N={N_PFB} M={ku.shape[0]}",
+                                 (ku,), (ru,))
+            if fmt == "c64" and os_ == 1:
+                _record("pfb_branch", err, plain_ms)
+            del ku, ru
+            for n in (C, (T - 1) * C, T * C, (T + 1) * C):
+                xe = x[-n:].contiguous()
+                _compare_exact(f"pfb_branch {fmt} os={os_} N={n}",
+                               (pfb.branch_accumulate(Ht, tail, xe, os_),),
+                               (kpfb.branch_accumulate(Ht, tail, xe, os_),))
+            # the second block behind the first one's tail (x, then 3 frames)
+            tail2 = torch.cat([tail, x[-htail:]])[-htail:]
+            x2 = _wire_noise(3 * C, fmt, 50 + k)
+            _compare_exact(f"pfb_branch {fmt} os={os_} second block N={3 * C}",
+                           (pfb.branch_accumulate(Ht, tail2, x2, os_),),
+                           (kpfb.branch_accumulate(Ht, tail2, x2, os_),))
+
+
+def kernel_first_order_mc():
+    """The column carry (cuda/first_order.first_order_apply_blocked_mc: the
+    transpose and one first_order_scan launch over the rows) bit for bit
+    against kernels/iir.first_order_apply_blocked_mc on the card: config
+    4's de-emphasis down (16384, 1024) frames from random carries, the
+    first 1, 31, 33, 8191, 8192 and 8193 frames, 16385 frames, and two
+    chained calls."""
+    import torch
+    from tpudsp_torch.chains import channelizer as tch
+    from tpudsp_torch.cuda import first_order as fo
+    from tpudsp_torch.design import iirdes
+    from tpudsp_torch.kernels import iir as kiir
+    b0, a = iirdes.deemphasis_coeffs(tch.ChannelizerConfig().chan_rate)
+    rng = np.random.default_rng(60)
+    x = torch.from_numpy(rng.standard_normal((16385, 1024)).astype(np.float32)).to(DEV)
+    y0 = torch.from_numpy(rng.standard_normal(1024).astype(np.float32)).to(DEV)
+    main = x[:16384].contiguous()
+    k = fo.first_order_apply_blocked_mc(b0, a, y0, main)
+    ref, plain_ms = timed(lambda: kiir.first_order_apply_blocked_mc(b0, a, y0, main))
+    err = _compare_exact("first_order_scan columns (16384, 1024)", k, ref)
+    _record("first_order_scan_mc", err, plain_ms)
+    for n in (1, 31, 33, TILE_FO - 1, TILE_FO, TILE_FO + 1, 16385):
+        xe = x[:n].contiguous()
+        _compare_exact(f"first_order_scan columns ({n}, 1024)",
+                       fo.first_order_apply_blocked_mc(b0, a, y0, xe),
+                       kiir.first_order_apply_blocked_mc(b0, a, y0, xe))
+    k1 = fo.first_order_apply_blocked_mc(b0, a, y0, x[:5000].contiguous())
+    k2 = fo.first_order_apply_blocked_mc(b0, a, k1[0], x[5000:].contiguous())
+    r1 = kiir.first_order_apply_blocked_mc(b0, a, y0, x[:5000])
+    r2 = kiir.first_order_apply_blocked_mc(b0, a, r1[0], x[5000:])
+    _compare_exact("first_order_scan columns two chained calls (5000 + 11385, 1024)",
+                   k1 + k2, r1 + r2)
+
+
+def _rows(outs, rows):
+    """The given rows of a path's blocks of audio, on the host."""
+    import torch
+    idx = torch.tensor(rows, device=outs[0].device)
+    return torch.cat([o.index_select(0, idx) for o in outs], 1).cpu().numpy()
+
+
+def channelizer_fm(timings):
+    """The FM bank (ChannelizedBankConfig(): the row-major FM fast path) on
+    three blocks in c64, i16 and u8 (and the c64 of the i16 / u8 values),
+    os = 2 and the 'conv' engine; Y and the FM audio against the float64
+    oracle. Returns the c64 bank's audio rows of PFB_FM and the c64
+    blocks."""
+    from tpudsp_torch.chains import ChannelizedBank, ChannelizedBankConfig, Channelizer
+    from tpudsp_torch.chains import ChannelizerConfig
+    from tpudsp_torch.design import iirdes
+    cfg = ChannelizedBankConfig()
+    C = cfg.channelizer.nchan
+    wire = {k: _split(v, N_PFB) for k, v in wire_of(pfb_signal(3, seed=31)).items()}
+    per_block = {"pfb_branch": 1, "first_order_scan_mc": 1}
+    y, rxs = {}, {}
+    for fmt in ("c64", "i16", "u8", "c64_i16", "c64_u8"):
+        rx = rxs[fmt] = ChannelizedBank(cfg, N_PFB, input_format=fmt[:3], device=DEV)
+        outs, _ = _run_chain(f"fm {fmt}", rx, wire[fmt], per_block, phase="channelizer")
+        y[fmt] = _rows(outs, PFB_FM)
+        if fmt in ("c64", "i16", "u8"):
+            timings[f"channelized fm {fmt}"] = (rx, wire[fmt], N_PFB)
+    # Y on 16 channels and the FM audio against the float64 oracle, over
+    # the block's first N_PFB_ORACLE samples
+    h = rxs["c64"].params[0].double().reshape(-1).cpu().numpy()
+    ch16 = sorted(PFB_FM + PFB_AM)
+    bo = oracle_module("bank_oracle")
+    xo = wire["c64"][0][:N_PFB_ORACLE]
+    for os_ in (1, 2):
+        cc = ChannelizerConfig(oversample=os_)
+        Y = Channelizer(cc, N_PFB, device=DEV)(wire["c64"][0])
+        M = N_PFB_ORACLE * os_ // C
+        Yk = Y[:M, list(ch16)].cpu().numpy()
+        ref = bo.channelizer_f64(xo.cpu().numpy(), h, C, os_, ch16)
+        worst = min(snr_db(ref[:, i], Yk[:, i]) for i in range(len(ch16)))
+        _check(f"Y os={os_}, the 16 carriers' channels ({len(PFB_FM)} FM, {len(PFB_AM)} AM), "
+               f"{M} frames vs float64 oracle, worst channel, dB", worst, 120.0, "channelizer")
+        if os_ == 1:
+            fm_i = [ch16.index(c) for c in PFB_FM]
+            b0, a = iirdes.deemphasis_coeffs(cc.chan_rate)
+            ref_a = bo.fm_demod_f64(ref[:, fm_i].T, cfg.kd, b0, a)
+            worst = min(snr_db(ref_a[i], y["c64"][i, :M]) for i in range(len(PFB_FM)))
+            _check(f"FM audio, {len(PFB_FM)} FM channels, {M} frames vs float64 oracle, "
+                   "worst channel, dB", worst, 100.0, "channelizer")
+    m = N_PFB // C
+    for fmt in ("i16", "u8"):
+        worst = min(snr_db(y[f"c64_{fmt}"][i, PFB_SETTLE:], y[fmt][i, PFB_SETTLE:])
+                    for i in range(len(PFB_FM)))
+        _check(f"FM {fmt} vs c64 of the {fmt} values, 3 blocks past frame {PFB_SETTLE}, "
+               "worst FM channel, dB", worst, 90.0, "channelizer")
+    # oversampled, and the 'conv' engine
+    rx2 = ChannelizedBank(ChannelizedBankConfig(channelizer=ChannelizerConfig(oversample=2)),
+                          N_PFB, device=DEV)
+    outs, _ = _run_chain("fm os=2", rx2, wire["c64"][:2], per_block, phase="channelizer")
+    if outs[0].shape != (C, 2 * m):
+        raise AssertionError(f"channelizer fm os=2: audio {tuple(outs[0].shape)}")
+    rxc = ChannelizedBank(ChannelizedBankConfig(channelizer=ChannelizerConfig(engine="conv")),
+                          N_PFB, device=DEV)
+    outs, _ = _run_chain("fm conv engine", rxc, wire["c64"][:1], {"first_order_scan_mc": 1},
+                         phase="channelizer")
+    yc = _rows(outs, PFB_FM)
+    worst = min(snr_db(y["c64"][i, :m], yc[i]) for i in range(len(PFB_FM)))
+    _check("FM conv engine vs shift, block 0, worst FM channel, dB", worst, 110.0, "channelizer")
+    return y["c64"], wire["c64"]
+
+
+def _am_tones(path: str, audio, chan_rate: float):
+    """Each AM carrier's row of the last block's last quarter: DC-free
+    (|mean| < 5% of the peak) and on its tone (within 2% of the channel
+    rate), tests/test_channelizer.py's pin."""
+    q = audio[:, 3 * audio.shape[1] // 4:]
+    for k, c in enumerate(PFB_AM):
+        a, tone = q[k], PFB_AM_TONES[k % 2]
+        peak = _pure_tone_hz(a - a.mean(), chan_rate)
+        log(f"channelizer: {path} AM channel {c}: tone {peak:.1f} Hz (want {tone}), mean "
+            f"{a.mean():.2e}, peak {np.abs(a).max():.3f}")
+        if not (abs(a.mean()) < 0.05 * np.abs(a).max() and abs(peak - tone) < 0.02 * chan_rate):
+            raise AssertionError(f"channelizer {path}: AM channel {c} off its tone or not DC-free")
+
+
+def channelizer_am(timings, y_fm, blocks):
+    """Envelope AM, coherent AM on all 1024 channels and a mixed fm /
+    coherent am bank (backend 'kernel'), two c64 blocks each: the launches
+    a block, the coherent launch bit for bit against its plain version, the
+    AM carriers on their tones, the mixed bank's FM rows against the FM
+    bank's."""
+    from tpudsp_torch.chains import ChannelizedBank, ChannelizedBankConfig
+    from tpudsp_torch.chains import channelizer as tch
+    from tpudsp_torch.cuda import am_backend_scan as scan
+    from tpudsp_torch.kernels import warmup as kwarm
+    blocks = blocks[:2]
+    chan_rate = tch.ChannelizerConfig().chan_rate
+    rx = ChannelizedBank(ChannelizedBankConfig(demod="am"), N_PFB, device=DEV)
+    outs, _ = _run_chain("envelope am", rx, blocks, {"pfb_branch": 1, "first_order_scan": 1},
+                         phase="channelizer")
+    timings["channelized envelope am c64"] = (rx, blocks, N_PFB)
+    coh = {"pfb_branch": 1, "am_front_scan": 1, "first_order_scan": 2}
+    w = kwarm.warmup_for(agc_alpha=0.01, pll_bw=0.001)
+    for name, demod in (("coherent am", "am"), ("mixed", ("fm", "am") * 512)):
+        rx = ChannelizedBank(ChannelizedBankConfig(demod=demod, am_coherent=True), N_PFB,
+                             backend="kernel", device=DEV)
+        outs, (am,) = _run_chain(name, rx, blocks, coh, [(tch, "front_chunked", 1)],
+                                 phase="channelizer")
+        p, st, xa, chunk, warmup = am[0][0]
+        if (chunk, warmup) != (1024, w):
+            raise AssertionError(f"channelizer {name}: chunk {chunk} warmup {warmup}")
+        _compare(f"channelizer {name} am_front_scan C={xa.shape[0]} L={xa.shape[1]} chunk "
+                 f"{chunk} warmup {warmup}", am[0][1],
+                 scan.front_chunked_ref(p, st, xa, chunk, warmup))
+        _am_tones(name, _rows(outs, PFB_AM), chan_rate)
+        timings[f"channelized {name} c64"] = (rx, blocks, N_PFB)
+        if name == "mixed":
+            worst = min(snr_db(y_fm[i, :2 * N_PFB // 1024], a)
+                        for i, a in enumerate(_rows(outs, PFB_FM)))
+            _check("mixed FM rows vs the FM bank's rows, 2 blocks, worst, dB", worst, 100.0,
+                   "channelizer")
+
+
+def time_pfb_and_columns():
+    """pfb_branch at config 4's c64 block (os 1) by the wrapper's call, its
+    launch alone and its kernel's device time, against its bound and one
+    torch.nn.functional.conv1d (groups C, dilation os; the re and im planes
+    as a batch of two, TF32 off); the i16 / u8 / os = 2 calls; the column
+    carry at (16384, 1024) (the transpose and the rows call) against the
+    rows call alone."""
+    import torch
+    from tpudsp_torch.chains import channelizer as tch
+    from tpudsp_torch.cuda import first_order as fo
+    from tpudsp_torch.cuda import launch, pfb
+    from tpudsp_torch.design import iirdes
+    from tpudsp_torch.kernels import pfb as kpfb
+    cfg = tch.ChannelizerConfig()
+    C, T = cfg.nchan, cfg.taps_per_branch
+    wire = wire_of(pfb_signal(1, seed=32))
+    out = {}
+    for fmt in ("c64", "i16", "u8"):
+        Ht, st = tch.build(cfg, fmt, device=DEV)
+        x, tail = wire[fmt], st.tail
+        for os_ in (1, 2):
+            M = N_PFB * os_ // C
+            nbytes = x.numel() * x.element_size() + M * C * 8
+            b = max(nbytes / HBM_BPS, 4.0 * T * M * C / F32_FLOPS) * 1e3
+            call = lambda: pfb.branch_accumulate(Ht, tail, x, os_)
+            key = f"{fmt} os={os_}"
+            out[key] = {"call_ms": _cuda_ms(call, 10), "bound_ms": b,
+                        "device_ms": _device_ms(call, "pfb_branch_kernel", 10)}
+            if fmt == "c64":
+                u = torch.empty((M, C), dtype=torch.complex64, device=DEV)
+                out[key]["alone_ms"] = _cuda_ms(lambda: launch.launch(
+                    "pfb_branch", x.device, Ht, tail, x, u, 0, T, C, os_, M), 10)
+                V = torch.cat([tail, x])[kpfb.frame_index(M, T, C, os_, x.device)]
+                planes = torch.view_as_real(V).permute(2, 1, 0).contiguous()
+                del V
+                K = Ht.flip(0).T.reshape(C, 1, T).contiguous()
+                torch.backends.cudnn.allow_tf32 = False
+                conv = lambda: torch.nn.functional.conv1d(planes, K, dilation=os_, groups=C)
+                yc = conv()
+                s = snr_db(call().cpu().numpy(),
+                           torch.complex(yc[0], yc[1]).T.contiguous().cpu().numpy())
+                out[key]["conv1d_ms"] = _cuda_ms(conv, 10)
+                out[key]["conv1d_vs_kernel_db"] = s
+                del planes, yc
+            log(f"timing: pfb_branch {key} N={N_PFB}: {json.dumps(out[key])}")
+            if key == "c64 os=1":
+                k = results["kernels"]["pfb_branch"]
+                k.update(ms=out[key]["call_ms"], library_ms=out[key]["conv1d_ms"])
+                bound("pfb_branch", nbytes, 4.0 * T * M * C)
+    b0, a = iirdes.deemphasis_coeffs(cfg.chan_rate)
+    rng = np.random.default_rng(61)
+    x = torch.from_numpy(rng.standard_normal((16384, C)).astype(np.float32)).to(DEV)
+    y0 = torch.zeros(C, device=DEV)
+    forms = {
+        "transpose + rows (the wrapper)": lambda: fo.first_order_apply_blocked_mc(b0, a, y0, x),
+        # the rows launch on the same memory as 1024 rows of 16384
+        "rows alone": lambda: fo.first_order_apply_blocked(b0, a, y0, x.view(C, -1)),
+    }
+    cols = {name: _cuda_ms(f, 10) for name, f in forms.items()}
+    cols["transpose + rows (the wrapper) kernel device"] = _device_ms(
+        forms["transpose + rows (the wrapper)"], "first_order_scan_kernel", 10)
+    out["column carry (16384, 1024)"] = cols
+    log(f"timing: first_order_scan column carry (16384, 1024): {json.dumps(cols)}")
+    results["kernels"]["first_order_scan_mc"]["ms"] = cols["transpose + rows (the wrapper)"]
+    bound("first_order_scan_mc", x.numel() * 8, x.numel() * OPS_FIRST_ORDER)
+    return out
+
+
+def phase_channelizer():
+    """BASELINE config 4 on the card at full width: each kernel of its path
+    held against its plain version, every path's launches a block, Y and
+    the FM audio against the float64 oracle, the wire formats, the 'conv'
+    engine, the coherent AM channels; each path's block time, pfb_branch's
+    and the column carry's times."""
+    kernel_pfb()
+    kernel_first_order_mc()
+    timings: dict = {}
+    y_fm, blocks = channelizer_fm(timings)
+    channelizer_am(timings, y_fm, blocks)
+    res = time_receivers(timings)
+    for path, v in res.items():
+        log(f"timing: {path}: {N_PFB / v['host_ms'] / 1e3:.1f} Msamp/s by the host clock, "
+            f"{N_PFB / v['cuda_event_ms'] / 1e3:.1f} by CUDA events, against the 100 Msps "
+            f"of radio a block carries ({N_PFB / PFB_FS * 1e3:.1f} ms of it)")
+    res["kernels"] = time_pfb_and_columns()
+    log(f"timing: channelizer: {json.dumps(res)}")
 
 
 RADIO_STAGES = ("bandpass", "resample", "agc", "am", "audio_filter")
@@ -2372,7 +2733,8 @@ def phase_timing():
 PHASES = [("build", phase_build), ("kernel", phase_kernel), ("chain", phase_chain),
           ("width", phase_width), ("sharded", phase_sharded), ("compat", phase_compat),
           ("options", phase_options), ("surface", phase_surface),
-          ("receivers", phase_receivers), ("timing", phase_timing)]
+          ("receivers", phase_receivers), ("channelizer", phase_channelizer),
+          ("timing", phase_timing)]
 
 KERNELS = [
     ("am_front_scan", "tpudsp_torch/csrc/am_front_scan.cu",
@@ -2388,6 +2750,12 @@ KERNELS = [
      "tpudsp/kernels/iir.py:343"),
     # an associative scan of double-float 2x2 maps, not a Pallas kernel
     ("biquad_scan", "tpudsp_torch/csrc/biquad_scan.cu", "tpudsp/kernels/iir.py:212"),
+    # T shifted multiply-adds that XLA fuses, not a Pallas kernel
+    ("pfb_branch", "tpudsp_torch/csrc/pfb_branch.cu", "tpudsp/chains/channelizer.py:185"),
+    # an einsum over column blocks and a lax.scan: a column call of
+    # first_order_scan
+    ("first_order_scan_mc", "tpudsp_torch/csrc/first_order_scan.cu",
+     "tpudsp/kernels/iir.py:381"),
 ]
 
 

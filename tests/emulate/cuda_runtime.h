@@ -1,9 +1,12 @@
-// CPU stand-ins for the CUDA features csrc/biquad_scan.cu uses, so that
-// tests/test_torch_biquad_emulated.py can build the kernel's source with
-// g++ and run it on the host: a launch runs its blocks one after the
-// other, in ticket order, each block's threads as std::threads with
-// std::barrier for __syncthreads and the warp shuffles. Floating point is
-// IEEE single (no contraction: -ffp-contract=off), __fmaf_rn is fmaf.
+// CPU stand-ins for the CUDA features csrc/biquad_scan.cu and
+// csrc/pfb_branch.cu use, so that tests/test_torch_biquad_emulated.py and
+// tests/test_torch_pfb_emulated.py can build the kernels' sources with g++
+// and run them on the host: a launch runs its blocks one after the other,
+// in ticket order, each block's threads as std::threads with std::barrier
+// for __syncthreads and the warp shuffles (emulate_launch), or, for a
+// kernel whose threads never wait for each other, one thread after the
+// other (emulate_serial_launch). Floating point is IEEE single (no
+// contraction: -ffp-contract=off), __fmaf_rn is fmaf.
 #pragma once
 #include <barrier>
 #include <cmath>
@@ -24,13 +27,23 @@
 struct dim3_ {
   unsigned x, y, z;
 };
-inline thread_local dim3_ threadIdx;
+inline thread_local dim3_ threadIdx, blockIdx, gridDim;
 using cudaError_t = int;
 using cudaStream_t = void*;
-enum { cudaSuccess = 0, cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 struct float4 {
   float x, y, z, w;
 };
+struct float2 {
+  float x, y;
+};
+struct short2 {
+  short x, y;
+};
+struct uchar2 {
+  unsigned char x, y;
+};
+inline float2 make_float2(float x, float y) { return {x, y}; }
 
 inline float __fmaf_rn(float a, float b, float c) { return std::fmaf(a, b, c); }
 inline void __nanosleep(unsigned) {}
@@ -83,9 +96,24 @@ void emulate_launch(int grid, int threads, Kernel kernel, A... args) {
     for (int t = 0; t < threads; ++t)
       ts.emplace_back([=] {
         threadIdx.x = t;
+        blockIdx.x = block;
+        gridDim.x = grid;
         kernel(args...);
       });
     for (auto& t : ts) t.join();
     for (auto* w : g_warps) delete w;
   }
+}
+
+// kernel<<<grid, threads, ...>>>(args...) of a kernel with no barrier and
+// no shuffle: every thread of every block in turn, on the calling thread
+template <class Kernel, class... A>
+void emulate_serial_launch(int grid, int threads, Kernel kernel, A... args) {
+  gridDim.x = grid;
+  for (int block = 0; block < grid; ++block)
+    for (int t = 0; t < threads; ++t) {
+      blockIdx.x = block;
+      threadIdx.x = t;
+      kernel(args...);
+    }
 }

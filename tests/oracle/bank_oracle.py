@@ -14,6 +14,15 @@ stream's start (every carry zero, the discriminator's previous sample
 
 dtheta_c is the channel's 32-bit phase increment (the bank's design);
 h1, h2 are the float64 lowpass designs in natural order.
+
+The polyphase channelizer by its definition, not by its filter bank
+(``channelizer_f64``): channel c of C with prototype h and hop R = C / os,
+
+    Y[m, c] = sum_k x[m R - k] e^{-2 pi j c ((m R - k) mod C) / C} h[k]
+
+i.e. the stream mixed down by c / C cycles a sample, filtered by h and
+kept every R-th sample; ``fm_demod_f64`` is the FM bank's discriminator
+and de-emphasis on such channel rows.
 """
 
 import numpy as np
@@ -48,12 +57,41 @@ def fm_bank_f64(iq, dtheta, h1, h2, D1: int, D2: int, kd: float, b0: float,
     for dt in dtheta:
         th = ((n * np.uint64(dt)) & np.uint64(0xFFFFFFFF)).astype(np.float64)
         y = decimated_fir(iq * np.exp(-2j * np.pi * th / 2.0 ** 32), h1, D1)
-        d = y * np.conj(np.concatenate([[1.0 + 0.0j], y[:-1]]))
-        audio.append(decimated_fir(np.angle(d) / (2 * np.pi * kd), h2, D2))
-    audio = np.stack(audio)
+        audio.append(decimated_fir(discriminate_f64(y, kd), h2, D2))
+    return deemphasis_f64(np.stack(audio), b0, a)
+
+
+def discriminate_f64(y, kd: float):
+    """s[m] = arg(y[m] conj(y[m-1])) / (2 pi kd) along the last axis, y[-1]
+    = 1 + 0j."""
+    y = np.asarray(y, np.complex128)
+    prev = np.concatenate([np.ones(y.shape[:-1] + (1,), y.dtype), y[..., :-1]], -1)
+    return np.angle(y * np.conj(prev)) / (2 * np.pi * kd)
+
+
+def deemphasis_f64(audio, b0: float, a: float):
+    """pcm[j] = b0 audio[j] + a pcm[j-1] along the last axis of (C, n), from
+    0."""
+    audio = np.asarray(audio, np.float64)
     pcm = np.empty_like(audio)
     prev = np.zeros(audio.shape[0])
     for j in range(audio.shape[1]):
         prev = b0 * audio[:, j] + a * prev
         pcm[:, j] = prev
     return pcm
+
+
+def channelizer_f64(x, h, C: int, os: int, channels):
+    """The channelizer's output Y (len(x) os // C, len(channels)) in
+    float64 for the given channels, from the stream's start (x[< 0] = 0),
+    with the prototype h (C T,) in natural order."""
+    x = np.asarray(x, np.complex128)
+    ph = (np.arange(len(x)) % C) / C
+    return np.stack([decimated_fir(x * np.exp(-2j * np.pi * c * ph), h, C // os)
+                     for c in channels], 1)
+
+
+def fm_demod_f64(y, kd: float, b0: float, a: float):
+    """The FM bank's discriminator and de-emphasis over channel rows y
+    (C, M), in float64."""
+    return deemphasis_f64(discriminate_f64(y, kd), b0, a)

@@ -27,14 +27,19 @@ first-order scan ``csrc/first_order_scan.cu`` (the AM receiver's whole
 linear tail in one launch; a complex64 entry for the pilot). The other
 receiver chains: the multi-channel bank (``chains.bank.ReceiverBank``,
 its front end one halo_async launch on one card), WBFM mono and stereo
-(``chains.wbfm``) and the SSB receiver (``chains.ssb``). Everything runs
-on the card ("cuda") unless the caller asks for the CPU.
+(``chains.wbfm``), the SSB receiver (``chains.ssb``) and the polyphase
+channelizer with its 1024-channel demod bank (``chains.channelizer``),
+whose branch sum is the CUDA kernel ``csrc/pfb_branch.cu`` and whose FM
+de-emphasis is one first_order_scan launch over the channels' rows.
+Everything runs on the card ("cuda") unless the caller asks for the CPU.
 """
 
 from .chains import (  # noqa: F401
-    AMConfig, AMReceiver, BankConfig, ReceiverBank, SSBConfig, SSBReceiver,
-    WBFMStereoReceiver, mono_receiver,
+    AMConfig, AMReceiver, BankConfig, ChannelizedBank, ChannelizedBankConfig, Channelizer,
+    ChannelizerConfig, ReceiverBank, SSBConfig, SSBReceiver, WBFMStereoReceiver,
+    mono_receiver,
 )
 
-__all__ = ["AMConfig", "AMReceiver", "BankConfig", "ReceiverBank", "SSBConfig",
-           "SSBReceiver", "WBFMStereoReceiver", "mono_receiver"]
+__all__ = ["AMConfig", "AMReceiver", "BankConfig", "ChannelizedBank",
+           "ChannelizedBankConfig", "Channelizer", "ChannelizerConfig", "ReceiverBank",
+           "SSBConfig", "SSBReceiver", "WBFMStereoReceiver", "mono_receiver"]

@@ -6,7 +6,9 @@ stream can move from a ``tpudsp`` receiver to a ``tpudsp_torch`` one
 mid-flight; ``sharded_am_from_jax`` does it for a JAX
 ``ShardedAMReceiver``'s taps and ``SAMState``; ``bank_from_jax``,
 ``stereo_from_jax`` and ``ssb_from_jax`` for a ``ReceiverBank``, a
-``WBFMStereoReceiver`` and an ``SSBReceiver``. ``op_state_from_jax`` does
+``WBFMStereoReceiver`` and an ``SSBReceiver``; ``channelizer_from_jax``
+and ``channelized_bank_from_jax`` for a ``Channelizer`` and a
+``ChannelizedBank``. ``op_state_from_jax`` does
 the same for an op of the
 reference class surface: it turns a ``tpudsp.compat`` op's ``.state`` (a
 host numpy pytree) into the state of its ``tpudsp_torch.compat`` twin,
@@ -20,6 +22,7 @@ import numpy as np
 
 from .chains.am import AMParams, AMState
 from .chains.bank import BankParams, BankState
+from .chains.channelizer import ChannelizerState, DemodBankState
 from .chains.ssb import SSBParams, SSBState
 from .chains.wbfm import StereoParams, StereoState
 from .kernels.agc import AgcParams, AgcState
@@ -107,14 +110,18 @@ def bank_from_jax(params, state, device="cuda"):
     the uint32 ``dtheta``, ``phase`` and ``n0`` as int64, the coherent AM
     back end's linear coefficients as Python floats, as the port keeps
     them."""
-    amb = params.amb
-    if amb is not None:
-        amb = _named(AmBackendParams, amb, device,
-                     agc=_named(AgcParams, amb.agc, device),
-                     **{f: float(np.asarray(getattr(amb, f)))
-                        for f in ("dc_rho", "deemph_b0", "deemph_a")})
-    return (_named(BankParams, params, device, amb=amb),
+    return (_named(BankParams, params, device, amb=_amb_from_jax(params.amb, device)),
             _named(BankState, state, device))
+
+
+def _amb_from_jax(amb, device):
+    """A JAX bank's coherent AM back-end parameters (or None) -> the port's,
+    the linear coefficients as Python floats."""
+    if amb is None:
+        return None
+    return _named(AmBackendParams, amb, device, agc=_named(AgcParams, amb.agc, device),
+                  **{f: float(np.asarray(getattr(amb, f)))
+                     for f in ("dc_rho", "deemph_b0", "deemph_a")})
 
 
 def stereo_from_jax(params, state, device="cuda"):
@@ -133,3 +140,22 @@ def ssb_from_jax(params, state, device="cuda"):
     ``state``) -> the port's on ``device``, leaf for leaf."""
     return (_named(SSBParams, params, device, agc=_named(AgcParams, params.agc, device)),
             _named(SSBState, state, device))
+
+
+def channelizer_from_jax(Ht, state, device="cuda"):
+    """A JAX ``Channelizer``'s ``Ht`` and ``ChannelizerState`` -> the port's
+    (Ht, ChannelizerState) on ``device``, the tail's dtype kept (complex64,
+    or raw int16 / uint8)."""
+    return _t(Ht, device), ChannelizerState(tail=_t(state.tail, device))
+
+
+def channelized_bank_from_jax(params, state, device="cuda"):
+    """A JAX ``ChannelizedBank``'s ``params`` (Ht, b0, a, amb, fm_mask) and
+    ``DemodBankState`` -> the port's on ``device``, leaf for leaf with
+    dtypes kept, the coherent AM back end's linear coefficients as Python
+    floats, as the port keeps them."""
+    Ht, b0, a, amb, fm_mask = params
+    Ht, ch = channelizer_from_jax(Ht, state.ch, device)
+    return ((Ht, _t(b0, device), _t(a, device), _amb_from_jax(amb, device),
+             _t(fm_mask, device)),
+            _named(DemodBankState, state, device, ch=ch))

@@ -53,6 +53,9 @@ SIGNATURES = {
     "biquad_scan": {
         "biquad_scan": [_P] * 6 + [_I] * 7 + [_P],
     },
+    "pfb_branch": {
+        "pfb_branch": [_P] * 4 + [_I] * 5 + [_P],
+    },
 }
 
 _lock = threading.Lock()

@@ -11,6 +11,9 @@ runs it as one hand-written kernel launch per call:
   complex64 (its re and im parts as two rows, read in place) with a
   complex64 y_prev, in one launch of the same entry (its launches counted
   apart);
+- ``first_order_apply_blocked_mc``: one recurrence down each column of a
+  row-major (N, C) f32 matrix with y_prev (C,): the transpose, then one
+  launch of the same entry over the C rows (its launches counted apart);
 - ``linear_tail``: the AM receiver's DC tracker, audio line and
   de-emphasis over vr (n,), in one launch.
 
@@ -101,6 +104,25 @@ def first_order_apply_blocked_c64(b0: float, a: float, y_prev, x):
 
 
 first_order_apply_blocked_c64.launches = 0
+
+
+def first_order_apply_blocked_mc(b0: float, a: float, y_prev, x):
+    """y[n, c] = b0 x[n, c] + a y[n-1, c] down each column of x (N, C)
+    f32 with y_prev (C,), as kernels/iir.first_order_apply_blocked_mc
+    computes it: x's columns as C contiguous rows, then one launch over
+    them. Returns (y_last (C,), y (N, C)), y the transpose of the (C, N)
+    rows, as the plain version returns it."""
+    if x.device.type == "cpu":
+        return kiir.first_order_apply_blocked_mc(b0, a, y_prev, x)
+    y_prev = torch.as_tensor(y_prev, dtype=torch.float32, device=x.device)
+    tab = kiir.device_table(float(b0), float(a), x.device)
+    y, (last,) = _launch("first_order_scan", (tab,), None, x.T.contiguous(),
+                         (y_prev.reshape(x.shape[1]).contiguous(),),
+                         counter=first_order_apply_blocked_mc)
+    return last, y.T
+
+
+first_order_apply_blocked_mc.launches = 0
 
 
 def linear_tail(p, dc0, de0, vr):

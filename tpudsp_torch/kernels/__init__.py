@@ -15,9 +15,10 @@ def f32_matmul(a, b):
     return torch.matmul(a, b)
 
 
-def f32_conv1d(x, w, stride: int = 1):
-    """``F.conv1d(x, w, stride=stride)`` (a cross-correlation, as lax.conv in
-    "VALID" mode) in full float32: cuDNN runs float32 convolutions in TF32
-    unless told otherwise, so that is switched off before every call."""
+def f32_conv1d(x, w, stride: int = 1, dilation: int = 1, groups: int = 1):
+    """``F.conv1d(x, w, stride=stride, dilation=dilation, groups=groups)`` (a
+    cross-correlation, as lax.conv in "VALID" mode) in full float32: cuDNN
+    runs float32 convolutions in TF32 unless told otherwise, so that is
+    switched off before every call."""
     torch.backends.cudnn.allow_tf32 = False
-    return F.conv1d(x, w, stride=stride)
+    return F.conv1d(x, w, stride=stride, dilation=dilation, groups=groups)

@@ -195,6 +195,19 @@ def first_order_apply_blocked(b0: float, a: float, y_prev, x,
     return y[:, -1].reshape(x.shape[:-1]), y.reshape(x.shape)
 
 
+def first_order_apply_blocked_mc(b0: float, a: float, y_prev, x):
+    """The column twin of ``first_order_apply_blocked`` (the JAX package's
+    ``tpudsp/kernels/iir.py`` ``first_order_apply_blocked_mc``): the same
+    recurrence y[n, c] = b0 x[n, c] + a y[n-1, c] down axis 0 of a
+    row-major (N, C) f32 frame matrix, the polyphase channelizer's layout.
+    Computed as the rows version computes each of x's columns (the plain
+    version of csrc/first_order_scan.cu's column call, bit for bit), where
+    the JAX package forms its (L, L) kernel from f32 powers. y_prev: (C,).
+    Returns (y_last (C,), y (N, C))."""
+    last, y = first_order_apply_blocked(b0, a, y_prev, x.T)
+    return last, y.T
+
+
 def linear_tail(p, dc0, de0, vr):
     """The AM receiver's linear tail over vr (n,) f32: the DC tracker (b0 =
     1 - rho, a = rho), audio = (vr - dc * use_dc) * inv_mod, then the
