@@ -6,10 +6,12 @@
 Run from the root of a checkout, on a machine with a CUDA device and the
 CUDA toolkit. ``--parent DIR`` names a checkout of an earlier commit (its
 files unpacked, e.g. by ``git archive``): the run then also holds pll_scan
-bit for bit against DIR's kernel, built from DIR's source, and, in a second
-process with DIR's package, times one AM block, counts its launches and
-times first_order_scan's, halo_async's and biquad_scan's calls
-(``--profile-root DIR`` alone prints that report and exits). Phases,
+bit for bit against DIR's kernel, built from DIR's source, times DIR's
+pfb_branch and rows launch beside this tree's, and, in a second process
+with DIR's package, times one AM block, counts its launches and times
+first_order_scan's, halo_async's and biquad_scan's calls
+(``--profile-root DIR`` alone prints that report and exits) and the config
+4 paths' blocks (``--channelizer-root DIR``). Phases,
 each of which fails the run (exit code 1, no final result line) if it
 fails:
 
@@ -143,12 +145,15 @@ fails:
               ChannelizedBankConfig(), 1024 channels of 12 taps a branch at
               100 Msps, blocks of 1024 x 16384 samples. pfb_branch bit for
               bit against its plain version (kernels/pfb) at the block's
-              shape in c64 / i16 / u8, os 1 and 2, at one frame, around the
-              carried tail's length and behind the first block's tail; the
-              column carry (the transpose and a first_order_scan launch of
-              rows) bit for bit against kernels/iir.
-              first_order_apply_blocked_mc at (16384, 1024) and at 1 ...
-              16385 frames. Paths, each with its
+              shape in c64 / i16 / u8, os 1 and 2, at T = 12, 8 and 6, at
+              one frame, around the carried tail's length, at 100 frames
+              and behind the first block's tail, and T = 17 refused; the
+              column carry (one first_order_scan_cols launch) bit for bit
+              against kernels/iir.first_order_apply_blocked_mc at (16384,
+              1024), at 1 ... 16385 frames (its 1024-frame tile's edges),
+              at 1022 and 1021 channels, with infinite and NaN samples and
+              over two chained calls.
+              Paths, each with its
               launches a block: the FM bank in c64 / i16 / u8 (and the c64
               of the i16 / u8 values) on three blocks, os = 2 and the 'conv'
               engine, envelope AM, coherent AM on all 1024 channels and a
@@ -161,8 +166,13 @@ fails:
               110), the AM carriers DC-free and on their tones, the mixed
               bank's FM rows against the FM bank's (>= 100); each path's
               block time, pfb_branch's call, launch alone and device time
-              against its bound and conv1d, the column carry against the
-              rows launch alone;
+              in c64 / i16 / u8, os 1 and 2, against its bound (c64 also
+              against conv1d), the column carry's call and device time
+              against its bound and the parent's form (the transpose and a
+              rows launch); with --parent, the parent's pfb_branch and
+              rows launch built and swapped in, in turns with this tree's,
+              and each path's block time beside the parent package's (in
+              a process of its own, --channelizer-root);
 11. timing -- per-format block time of the AM receiver (host clock and CUDA
               events), per-mode block time of the sharded receiver,
               per-callback time of the AMRadio (median of 5 with spread),
@@ -689,8 +699,9 @@ def parent_library(name: str):
         raise RuntimeError(f"nvcc failed for the parent's {name}.cu:\n{res.stderr}")
     lib = ctypes.CDLL(str(out))
     for fn, argtypes in build.SIGNATURES[name].items():
-        getattr(lib, fn).argtypes = argtypes
-        getattr(lib, fn).restype = ctypes.c_int
+        if hasattr(lib, fn):   # an entry point the parent's source had
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
     return lib
 
 
@@ -2068,50 +2079,69 @@ def _wire_noise(n: int, fmt: str, seed: int):
 
 def kernel_pfb():
     """pfb_branch bit for bit against kernels/pfb.branch_accumulate on the
-    card at config 4's taps: the 16.8M-sample block behind a random tail
-    (c64, i16, u8; os 1 and 2), blocks of one frame and of whole frames
-    around the tail's length htail = T C - 1 ((T - 1) C, T C, (T + 1) C),
-    and a second block fed from the first block's tail."""
+    card at config 4's width (C = 1024): at its taps (T = 12) and at
+    random taps of T = 8 and 6 (the kernel's instance for up to 8 taps,
+    the taps past T masked), the 16.8M-sample block behind a random tail
+    (c64, i16, u8; os 1 and 2: each branch's 16,384 or 32,768 frames cut
+    into runs of frames, the last one short), blocks of one frame, of whole
+    frames around the tail's length htail = T C - 1 ((T - 1) C, T C, (T +
+    1) C), of fewer frames than a run takes at the full block (100), and a
+    second block fed from the first block's tail; and a T of 17 refused."""
     import torch
     from tpudsp_torch.chains import channelizer as tch
     from tpudsp_torch.cuda import pfb
     from tpudsp_torch.kernels import pfb as kpfb
     cfg = tch.ChannelizerConfig()
-    C, T = cfg.nchan, cfg.taps_per_branch
-    htail = (T - 1) * C + C - 1
+    C = cfg.nchan
     wire = wire_of(pfb_signal(1, seed=30))
-    for k, fmt in enumerate(("c64", "i16", "u8")):
-        Ht, _ = tch.build(cfg, fmt, device=DEV)
-        tail = _wire_noise(htail, fmt, 40 + k)
-        x = wire[fmt]
-        for os_ in (1, 2):
-            ku = pfb.branch_accumulate(Ht, tail, x, os_)
-            ru, plain_ms = timed(lambda: kpfb.branch_accumulate(Ht, tail, x, os_))
-            err = _compare_exact(f"pfb_branch config 4 {fmt} os={os_} N={N_PFB} M={ku.shape[0]}",
-                                 (ku,), (ru,))
-            if fmt == "c64" and os_ == 1:
-                _record("pfb_branch", err, plain_ms)
-            del ku, ru
-            for n in (C, (T - 1) * C, T * C, (T + 1) * C):
-                xe = x[-n:].contiguous()
-                _compare_exact(f"pfb_branch {fmt} os={os_} N={n}",
-                               (pfb.branch_accumulate(Ht, tail, xe, os_),),
-                               (kpfb.branch_accumulate(Ht, tail, xe, os_),))
-            # the second block behind the first one's tail (x, then 3 frames)
-            tail2 = torch.cat([tail, x[-htail:]])[-htail:]
-            x2 = _wire_noise(3 * C, fmt, 50 + k)
-            _compare_exact(f"pfb_branch {fmt} os={os_} second block N={3 * C}",
-                           (pfb.branch_accumulate(Ht, tail2, x2, os_),),
-                           (kpfb.branch_accumulate(Ht, tail2, x2, os_),))
+    rng = np.random.default_rng(33)
+    for T in (cfg.taps_per_branch, 8, 6):
+        htail = (T - 1) * C + C - 1
+        for k, fmt in enumerate(("c64", "i16", "u8")):
+            Ht, _ = tch.build(tch.ChannelizerConfig(taps_per_branch=T), fmt, device=DEV)
+            if T != cfg.taps_per_branch:
+                Ht = torch.from_numpy(rng.standard_normal((T, C)).astype(np.float32)
+                                      / (T * C)).to(DEV)
+            tail = _wire_noise(htail, fmt, 40 + k)
+            x = wire[fmt]
+            for os_ in (1, 2):
+                ku = pfb.branch_accumulate(Ht, tail, x, os_)
+                ru, plain_ms = timed(lambda: kpfb.branch_accumulate(Ht, tail, x, os_))
+                err = _compare_exact(f"pfb_branch config 4 T={T} {fmt} os={os_} N={N_PFB} "
+                                     f"M={ku.shape[0]}", (ku,), (ru,))
+                if T == cfg.taps_per_branch and fmt == "c64" and os_ == 1:
+                    _record("pfb_branch", err, plain_ms)
+                del ku, ru
+                for n in (C, (T - 1) * C, T * C, (T + 1) * C, 100 * C):
+                    xe = x[-n:].contiguous()
+                    _compare_exact(f"pfb_branch T={T} {fmt} os={os_} N={n}",
+                                   (pfb.branch_accumulate(Ht, tail, xe, os_),),
+                                   (kpfb.branch_accumulate(Ht, tail, xe, os_),))
+                # the second block behind the first one's tail (x, then 3 frames)
+                tail2 = torch.cat([tail, x[-htail:]])[-htail:]
+                x2 = _wire_noise(3 * C, fmt, 50 + k)
+                _compare_exact(f"pfb_branch T={T} {fmt} os={os_} second block N={3 * C}",
+                               (pfb.branch_accumulate(Ht, tail2, x2, os_),),
+                               (kpfb.branch_accumulate(Ht, tail2, x2, os_),))
+    H17 = torch.zeros((17, C), device=DEV)
+    try:
+        pfb.branch_accumulate(H17, torch.zeros(17 * C - 1, dtype=torch.complex64, device=DEV),
+                              wire["c64"][:C].contiguous(), 1)
+    except ValueError as e:
+        log(f"kernel[pfb_branch T=17]: refused: {e}")
+    else:
+        raise AssertionError("pfb_branch took 17 taps a branch")
 
 
 def kernel_first_order_mc():
-    """The column carry (cuda/first_order.first_order_apply_blocked_mc: the
-    transpose and one first_order_scan launch over the rows) bit for bit
-    against kernels/iir.first_order_apply_blocked_mc on the card: config
-    4's de-emphasis down (16384, 1024) frames from random carries, the
-    first 1, 31, 33, 8191, 8192 and 8193 frames, 16385 frames, and two
-    chained calls."""
+    """The column carry (cuda/first_order.first_order_apply_blocked_mc: one
+    first_order_scan_cols launch, reading the columns in place and writing
+    the rows) bit for bit against kernels/iir.first_order_apply_blocked_mc
+    on the card: config 4's de-emphasis down (16384, 1024) frames from
+    random carries, the first 1, 31, 33 frames and the column tile's edges
+    (COLS_TILE_BLOCKS x 32 = 1024: 1023, 1024, 1025, 2049), 16385 frames,
+    1022 and 1021 of the columns (no multiple of the 8 a block takes),
+    infinite and NaN samples, and two chained calls."""
     import torch
     from tpudsp_torch.chains import channelizer as tch
     from tpudsp_torch.cuda import first_order as fo
@@ -2126,11 +2156,24 @@ def kernel_first_order_mc():
     ref, plain_ms = timed(lambda: kiir.first_order_apply_blocked_mc(b0, a, y0, main))
     err = _compare_exact("first_order_scan columns (16384, 1024)", k, ref)
     _record("first_order_scan_mc", err, plain_ms)
-    for n in (1, 31, 33, TILE_FO - 1, TILE_FO, TILE_FO + 1, 16385):
+    tile = kiir.COLS_TILE_BLOCKS * kiir.L_BLOCK
+    for n in (1, 31, 33, tile - 1, tile, tile + 1, 2 * tile + 1, 16385):
         xe = x[:n].contiguous()
         _compare_exact(f"first_order_scan columns ({n}, 1024)",
                        fo.first_order_apply_blocked_mc(b0, a, y0, xe),
                        kiir.first_order_apply_blocked_mc(b0, a, y0, xe))
+    for n, c in ((16384, 1022), (tile + 1, 1021), (33, 1021)):
+        xe = x[:n, :c].contiguous()
+        _compare_exact(f"first_order_scan columns ({n}, {c})",
+                       fo.first_order_apply_blocked_mc(b0, a, y0[:c], xe),
+                       kiir.first_order_apply_blocked_mc(b0, a, y0[:c], xe))
+    # infinite and NaN samples: NaN from them on in their columns
+    xn = x[:3000].clone()
+    xn[40, 1], xn[37, 2], xn[1100, 0], xn[2047, 1023] = (float("inf"), float("-inf"),
+                                                         float("nan"), float("nan"))
+    _compare_exact("first_order_scan columns (3000, 1024) with inf and NaN samples",
+                   fo.first_order_apply_blocked_mc(b0, a, y0, xn),
+                   kiir.first_order_apply_blocked_mc(b0, a, y0, xn))
     k1 = fo.first_order_apply_blocked_mc(b0, a, y0, x[:5000].contiguous())
     k2 = fo.first_order_apply_blocked_mc(b0, a, k1[0], x[5000:].contiguous())
     r1 = kiir.first_order_apply_blocked_mc(b0, a, y0, x[:5000])
@@ -2262,38 +2305,67 @@ def channelizer_am(timings, y_fm, blocks):
                    "channelizer")
 
 
+def _pfb_times(call, alone) -> dict:
+    """pfb_branch's call, its launch alone and its kernel's device time (ms)."""
+    return {"call_ms": _cuda_ms(call, 10), "alone_ms": _cuda_ms(alone, 10),
+            "device_ms": _device_ms(call, "pfb_branch_kernel", 10)}
+
+
+def _in_turns(mine, parent_lib, name: str) -> dict:
+    """mine() with this tree's kernel and, with --parent, with the parent's
+    csrc/<name>.cu swapped in, in turns (parent, this, this, parent): each
+    key of mine()'s dict as this tree's value (the first of the two) and
+    'parent_' + key (the first parent's), the second runs under '2'."""
+    if parent_lib is None:
+        return mine()
+    with library_swapped(name, parent_lib):
+        p1 = mine()
+    m1, m2 = mine(), mine()
+    with library_swapped(name, parent_lib):
+        p2 = mine()
+    out = {**m1, **{f"{k} 2": v for k, v in m2.items()}}
+    out.update({f"parent_{k}": v for k, v in p1.items()})
+    out.update({f"parent_{k} 2": v for k, v in p2.items()})
+    return out
+
+
 def time_pfb_and_columns():
-    """pfb_branch at config 4's c64 block (os 1) by the wrapper's call, its
-    launch alone and its kernel's device time, against its bound and one
+    """pfb_branch at config 4's block in c64 / i16 / u8, os 1 and 2, by the
+    wrapper's call, its launch alone (output allocated beforehand) and its
+    kernel's device time, against its bound; the c64 calls against one
     torch.nn.functional.conv1d (groups C, dilation os; the re and im planes
-    as a batch of two, TF32 off); the i16 / u8 / os = 2 calls; the column
-    carry at (16384, 1024) (the transpose and the rows call) against the
-    rows call alone."""
+    as a batch of two, TF32 off). The column carry at (16384, 1024) by the
+    call and by its kernel's device time, against its bound and against the
+    parent's form (the transpose and a first_order_scan launch of rows).
+    With --parent, the parent's pfb_branch and its transpose-and-rows form,
+    their sources built and swapped in, in turns with this tree's."""
     import torch
     from tpudsp_torch.chains import channelizer as tch
     from tpudsp_torch.cuda import first_order as fo
     from tpudsp_torch.cuda import launch, pfb
     from tpudsp_torch.design import iirdes
+    from tpudsp_torch.kernels import iir as kiir
     from tpudsp_torch.kernels import pfb as kpfb
     cfg = tch.ChannelizerConfig()
     C, T = cfg.nchan, cfg.taps_per_branch
     wire = wire_of(pfb_signal(1, seed=32))
+    parent_pfb = parent_library("pfb_branch") if PARENT else None
     out = {}
-    for fmt in ("c64", "i16", "u8"):
+    for kind, fmt in enumerate(("c64", "i16", "u8")):
         Ht, st = tch.build(cfg, fmt, device=DEV)
         x, tail = wire[fmt], st.tail
         for os_ in (1, 2):
             M = N_PFB * os_ // C
             nbytes = x.numel() * x.element_size() + M * C * 8
             b = max(nbytes / HBM_BPS, 4.0 * T * M * C / F32_FLOPS) * 1e3
+            u = torch.empty((M, C), dtype=torch.complex64, device=DEV)
             call = lambda: pfb.branch_accumulate(Ht, tail, x, os_)
+            alone = lambda: launch.launch("pfb_branch", x.device, Ht, tail, x, u, kind, T, C,
+                                          os_, M)
             key = f"{fmt} os={os_}"
-            out[key] = {"call_ms": _cuda_ms(call, 10), "bound_ms": b,
-                        "device_ms": _device_ms(call, "pfb_branch_kernel", 10)}
+            out[key] = {"bound_ms": b, **_in_turns(lambda: _pfb_times(call, alone), parent_pfb,
+                                                   "pfb_branch")}
             if fmt == "c64":
-                u = torch.empty((M, C), dtype=torch.complex64, device=DEV)
-                out[key]["alone_ms"] = _cuda_ms(lambda: launch.launch(
-                    "pfb_branch", x.device, Ht, tail, x, u, 0, T, C, os_, M), 10)
                 V = torch.cat([tail, x])[kpfb.frame_index(M, T, C, os_, x.device)]
                 planes = torch.view_as_real(V).permute(2, 1, 0).contiguous()
                 del V
@@ -2306,28 +2378,74 @@ def time_pfb_and_columns():
                 out[key]["conv1d_ms"] = _cuda_ms(conv, 10)
                 out[key]["conv1d_vs_kernel_db"] = s
                 del planes, yc
-            log(f"timing: pfb_branch {key} N={N_PFB}: {json.dumps(out[key])}")
+            v = out[key]
+            log(f"timing: pfb_branch {key} N={N_PFB}: call {v['call_ms']:.4f} ms, launch alone "
+                f"{v['alone_ms']:.4f}, device {v['device_ms']:.4f}, bound {b:.4f} "
+                f"({v['device_ms'] / b:.2f}x by the device); {json.dumps(v)}")
             if key == "c64 os=1":
                 k = results["kernels"]["pfb_branch"]
-                k.update(ms=out[key]["call_ms"], library_ms=out[key]["conv1d_ms"])
+                k.update(ms=v["call_ms"], library_ms=v["conv1d_ms"])
                 bound("pfb_branch", nbytes, 4.0 * T * M * C)
+            del u
     b0, a = iirdes.deemphasis_coeffs(cfg.chan_rate)
     rng = np.random.default_rng(61)
     x = torch.from_numpy(rng.standard_normal((16384, C)).astype(np.float32)).to(DEV)
     y0 = torch.zeros(C, device=DEV)
-    forms = {
-        "transpose + rows (the wrapper)": lambda: fo.first_order_apply_blocked_mc(b0, a, y0, x),
-        # the rows launch on the same memory as 1024 rows of 16384
-        "rows alone": lambda: fo.first_order_apply_blocked(b0, a, y0, x.view(C, -1)),
-    }
-    cols = {name: _cuda_ms(f, 10) for name, f in forms.items()}
-    cols["transpose + rows (the wrapper) kernel device"] = _device_ms(
-        forms["transpose + rows (the wrapper)"], "first_order_scan_kernel", 10)
+    tab = kiir.device_table(float(b0), float(a), x.device)
+    # the parent's form: the f32 transpose and one launch of C rows
+    rows = lambda: fo._launch("first_order_scan", (tab,), None, x.T.contiguous(), (y0,))
+    cols_call = lambda: fo.first_order_apply_blocked_mc(b0, a, y0, x)
+    cols = {"call_ms": _cuda_ms(cols_call, 10),
+            "device_ms": _device_ms(cols_call, "first_order_cols_kernel", 10)}
+    parent_fo = parent_library("first_order_scan") if PARENT else None
+    cols.update({f"transpose + rows {k}": v for k, v in _in_turns(
+        lambda: {"call_ms": _cuda_ms(rows, 10),
+                 "rows_device_ms": _device_ms(rows, "first_order_scan_kernel", 10)},
+        parent_fo, "first_order_scan").items()})
+    cols["bound_ms"] = max(x.numel() * 8 / HBM_BPS, x.numel() * OPS_FIRST_ORDER / F32_FLOPS) * 1e3
     out["column carry (16384, 1024)"] = cols
-    log(f"timing: first_order_scan column carry (16384, 1024): {json.dumps(cols)}")
-    results["kernels"]["first_order_scan_mc"]["ms"] = cols["transpose + rows (the wrapper)"]
+    log(f"timing: first_order_scan column carry (16384, 1024): call {cols['call_ms']:.4f} ms, "
+        f"device {cols['device_ms']:.4f}, bound {cols['bound_ms']:.4f} "
+        f"({cols['call_ms'] / cols['bound_ms']:.2f}x by the call); {json.dumps(cols)}")
+    results["kernels"]["first_order_scan_mc"]["ms"] = cols["call_ms"]
     bound("first_order_scan_mc", x.numel() * 8, x.numel() * OPS_FIRST_ORDER)
     return out
+
+
+def channelizer_block_times() -> dict:
+    """Each config 4 path's block time with whatever tpudsp_torch is
+    imported (this tree's, or --channelizer-root's): the FM bank in c64 /
+    i16 / u8, envelope AM, coherent AM and the mixed bank (backend
+    'kernel'), each the median of 5 blocks after a warm-up block, by the
+    host clock with a synchronise and by CUDA events. Uses only entry
+    points the package has had since the channelizer's port."""
+    from tpudsp_torch.chains import ChannelizedBank, ChannelizedBankConfig
+    wire = {k: _split(v, N_PFB) for k, v in wire_of(pfb_signal(2, seed=34)).items()}
+    paths = {f"fm {f}": (ChannelizedBankConfig(), f, {}) for f in ("c64", "i16", "u8")}
+    paths["envelope am c64"] = (ChannelizedBankConfig(demod="am"), "c64", {})
+    paths["coherent am c64"] = (ChannelizedBankConfig(demod="am", am_coherent=True), "c64",
+                                {"backend": "kernel"})
+    paths["mixed c64"] = (ChannelizedBankConfig(demod=("fm", "am") * 512, am_coherent=True),
+                          "c64", {"backend": "kernel"})
+    out = {}
+    for path, (cfg, fmt, kw) in paths.items():
+        rx = ChannelizedBank(cfg, N_PFB, input_format=fmt, device=DEV, **kw)
+        blocks = (wire[fmt] * 3)[:6]
+        med, spread = _block_times(rx, blocks)
+        out[path] = {"host_ms": med * 1e3, "host_spread": spread,
+                     "cuda_event_ms": _block_device_ms(rx, blocks)}
+    return out
+
+
+def parent_report(flag: str) -> dict:
+    """This file run with ``flag`` and --parent's checkout, in a process of
+    its own: the JSON object it prints last."""
+    res = subprocess.run([sys.executable, str(Path(__file__).resolve()), flag, str(PARENT)],
+                         capture_output=True, text=True, timeout=600)
+    line = res.stdout.strip().splitlines()[-1:] if res.returncode == 0 else []
+    if not line:
+        raise AssertionError(f"the parent's {flag} process failed: {res.stderr[-2000:]}")
+    return json.loads(line[0])
 
 
 def phase_channelizer():
@@ -2347,6 +2465,19 @@ def phase_channelizer():
             f"{N_PFB / v['cuda_event_ms'] / 1e3:.1f} by CUDA events, against the 100 Msps "
             f"of radio a block carries ({N_PFB / PFB_FS * 1e3:.1f} ms of it)")
     res["kernels"] = time_pfb_and_columns()
+    if PARENT:
+        # each path's block time beside the parent's: this tree, the
+        # parent's package in a process of its own, this tree again
+        mine = channelizer_block_times()
+        parent = parent_report("--channelizer-root")
+        again = channelizer_block_times()
+        for path, v in mine.items():
+            p = parent[path]
+            log(f"timing: channelizer {path} block: this tree {v['host_ms']:.3f} / "
+                f"{again[path]['host_ms']:.3f} ms by the host clock, {v['cuda_event_ms']:.3f} / "
+                f"{again[path]['cuda_event_ms']:.3f} by CUDA events; the parent's "
+                f"{p['host_ms']:.3f} / {p['cuda_event_ms']:.3f}")
+        res["beside the parent"] = {"this tree": mine, "parent": parent, "this tree again": again}
     log(f"timing: channelizer: {json.dumps(res)}")
 
 
@@ -2610,15 +2741,9 @@ def phase_timing():
     log(f"timing: first_order_scan, halo_async and biquad_scan times: {json.dumps(calls)}")
     if PARENT:
         # the same with the parent's package, in a process of its own
-        res = subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                              "--profile-root", str(PARENT)],
-                             capture_output=True, text=True, timeout=600)
-        line = res.stdout.strip().splitlines()[-1:] if res.returncode == 0 else []
         log(f"timing: profiler and block times, the parent's AMReceiver c64 4M-sample "
             f"block, and its first_order_scan, halo_async and biquad_scan times: "
-            f"{line[0] if line else 'failed: ' + res.stderr[-2000:]}")
-        if not line:
-            raise AssertionError("the parent's timing process failed")
+            f"{json.dumps(parent_report('--profile-root'))}")
     blocks = [torch.from_numpy(b).to(DEV) for b in data["c64"]]
     for halo in ("ppermute", "async"):
         rx = ShardedAMReceiver(AMConfig(), make_mesh(1, 1, DEV), BLOCK_4M, halo=halo,
@@ -2752,8 +2877,8 @@ KERNELS = [
     ("biquad_scan", "tpudsp_torch/csrc/biquad_scan.cu", "tpudsp/kernels/iir.py:212"),
     # T shifted multiply-adds that XLA fuses, not a Pallas kernel
     ("pfb_branch", "tpudsp_torch/csrc/pfb_branch.cu", "tpudsp/chains/channelizer.py:185"),
-    # an einsum over column blocks and a lax.scan: a column call of
-    # first_order_scan
+    # an einsum over column blocks and a lax.scan: the column entry of
+    # first_order_scan.cu, first_order_scan_cols
     ("first_order_scan_mc", "tpudsp_torch/csrc/first_order_scan.cu",
      "tpudsp/kernels/iir.py:381"),
 ]
@@ -2768,6 +2893,8 @@ def main() -> int:
     ap.add_argument("--profile-root", type=Path, help="print one AM block's times and "
                     "profiler window, and first_order_scan's, halo_async's and biquad_scan's "
                     "call times, with the package under this checkout, and exit")
+    ap.add_argument("--channelizer-root", type=Path, help="print the config 4 paths' block "
+                    "times with the package under this checkout, and exit")
     args = ap.parse_args()
     if not (ROOT / "tpudsp_torch" / "csrc").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository "
@@ -2782,6 +2909,10 @@ def main() -> int:
         # under the given root, for --parent; prints one JSON line
         sys.path.insert(0, str(args.profile_root.resolve()))
         print(json.dumps({**profile_am_block(), "calls": kernel_call_times()}))
+        return 0
+    if args.channelizer_root:
+        sys.path.insert(0, str(args.channelizer_root.resolve()))
+        print(json.dumps(channelizer_block_times()))
         return 0
     PARENT = args.parent.resolve() if args.parent else None
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -1,9 +1,11 @@
-// CPU stand-ins for the CUDA features csrc/biquad_scan.cu and
-// csrc/pfb_branch.cu use, so that tests/test_torch_biquad_emulated.py and
-// tests/test_torch_pfb_emulated.py can build the kernels' sources with g++
-// and run them on the host: a launch runs its blocks one after the other,
+// CPU stand-ins for the CUDA features csrc/biquad_scan.cu,
+// csrc/first_order_scan.cu and csrc/pfb_branch.cu use, so that
+// tests/test_torch_biquad_emulated.py, tests/test_torch_first_order_cols_
+// emulated.py and tests/test_torch_pfb_emulated.py can build the kernels'
+// sources with g++ and run them on the host: a launch runs its blocks one
+// after the other,
 // in ticket order, each block's threads as std::threads with std::barrier
-// for __syncthreads and the warp shuffles (emulate_launch), or, for a
+// for __syncthreads, __syncwarp and the warp shuffles (emulate_launch), or, for a
 // kernel whose threads never wait for each other, one thread after the
 // other (emulate_serial_launch). Floating point is IEEE single (no
 // contraction: -ffp-contract=off), __fmaf_rn is fmaf.
@@ -20,7 +22,7 @@
 #define __device__
 #define __host__
 #define __forceinline__ inline
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #define __shared__
 #define __restrict__
 
@@ -30,7 +32,13 @@ struct dim3_ {
 inline thread_local dim3_ threadIdx, blockIdx, gridDim;
 using cudaError_t = int;
 using cudaStream_t = void*;
-enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum {
+  cudaSuccess = 0,
+  cudaErrorInvalidValue = 1,
+  cudaFuncAttributeMaxDynamicSharedMemorySize = 8,
+  cudaFuncAttributePreferredSharedMemoryCarveout = 9,
+  cudaDevAttrMultiProcessorCount = 16
+};
 struct float4 {
   float x, y, z, w;
 };
@@ -61,11 +69,29 @@ template <class K>
 cudaError_t cudaFuncSetAttribute(K, int, int) { return cudaSuccess; }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 
+// the emulated card: g_sms SMs of one resident block each, so that a
+// test sets how many threads a launch shape fills
+inline int g_sms = 1;
+inline cudaError_t cudaGetDevice(int* d) {
+  *d = 0;
+  return cudaSuccess;
+}
+inline cudaError_t cudaDeviceGetAttribute(int* v, int, int) {
+  *v = g_sms;
+  return cudaSuccess;
+}
+template <class K>
+cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, K, int, size_t) {
+  *n = 1;
+  return cudaSuccess;
+}
+
 // the running block's barriers and the warps' exchange slots
 inline std::barrier<>* g_block;
 inline std::vector<std::barrier<>*> g_warps;
 inline float g_lanes[32][32];
 inline void __syncthreads() { g_block->arrive_and_wait(); }
+inline void __syncwarp(unsigned = 0xffffffffu) { g_warps[threadIdx.x / 32]->arrive_and_wait(); }
 
 inline float shuffle(float v, int src, bool in_range) {
   const int w = threadIdx.x / 32, l = threadIdx.x % 32;
@@ -79,6 +105,7 @@ inline float __shfl_up_sync(unsigned, float v, int d) {
   const int l = threadIdx.x % 32;
   return shuffle(v, l - d, l >= d);
 }
+inline float __shfl_sync(unsigned, float v, int src) { return shuffle(v, src, true); }
 inline float __shfl_down_sync(unsigned, float v, int d) {
   const int l = threadIdx.x % 32;
   return shuffle(v, l + d, l + d < 32);

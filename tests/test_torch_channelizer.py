@@ -161,9 +161,10 @@ COLUMN_COEFFS = {"deemph_100k": iirdes.deemphasis_coeffs(100_000.0),
 
 @pytest.mark.parametrize("which", sorted(COLUMN_COEFFS))
 def test_column_carry_vs_tpudsp_and_float64(which):
-    """The plain first_order_apply_blocked_mc over (N, C) = (9000, 5) (two
-    tiles and a ragged block) from distinct carries: bit for bit the rows
-    version on the transpose; >= 110 dB from tpudsp's _mc, whose (L, L)
+    """The plain first_order_apply_blocked_mc over (N, C) = (9000, 5) (nine
+    of its tiles, the last ragged) from distinct carries: bit for bit the
+    rows version on the transpose at the column entry's tile of
+    COLS_TILE_BLOCKS blocks; >= 110 dB from tpudsp's _mc, whose (L, L)
     kernel comes from f32 powers (132.8-137.6 dB); >= 120 dB from a
     float64 serial loop (144.7-145.4 dB); the wrapper on CPU tensors is the plain
     version and launches nothing."""
@@ -175,7 +176,8 @@ def test_column_carry_vs_tpudsp_and_float64(which):
     last, y = tiir.first_order_apply_blocked_mc(b0, a, torch.from_numpy(y0), torch.from_numpy(x))
     assert y.shape == (n, C) and last.shape == (C,)
     r_last, r_y = tiir.first_order_apply_blocked(b0, a, torch.from_numpy(y0),
-                                                 torch.from_numpy(np.ascontiguousarray(x.T)))
+                                                 torch.from_numpy(np.ascontiguousarray(x.T)),
+                                                 tb=tiir.COLS_TILE_BLOCKS)
     assert torch.equal(y.T.contiguous().view(torch.int32), r_y.view(torch.int32))
     assert torch.equal(last.view(torch.int32), r_last.view(torch.int32))
     j_last, j_y = jiir.first_order_apply_blocked_mc(b0, a, jnp.asarray(y0), jnp.asarray(x))
@@ -194,13 +196,12 @@ def test_column_carry_vs_tpudsp_and_float64(which):
 
 
 def test_column_launch_refuses_cpu_tensors_and_scratch_grows():
-    """The column carry's launch (C rows of N) needs a CUDA tensor; the
-    stream's link scratch grows to carries x C x tiles links (config 4:
-    1 x 1024 x 2)."""
+    """The column carry's launch (first_order_scan_cols over (N, C)) needs a
+    CUDA tensor; the stream's link scratch of the rows' launches grows to
+    carries x C x tiles links (1 x 1024 x 2)."""
     tab = tiir.device_table(0.1, 0.9, torch.device("cpu"))
     with pytest.raises(ValueError, match="CUDA"):
-        first_order._launch("first_order_scan", (tab,), None, torch.zeros((1024, 16384)),
-                            (torch.zeros(1024),))
+        first_order._launch_cols(tab, torch.zeros((16384, 1024)), torch.zeros(1024))
     scratch, _, _ = launch.chain(torch.device("cpu"), -1, 1024 * 2, 1024 * 2)
     assert scratch.numel() >= 4 + launch.LINK * 2048
 

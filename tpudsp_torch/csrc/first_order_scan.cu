@@ -19,7 +19,12 @@
 //     first_order_apply_blocked_c64, carries its block entries as plain
 //     complex64; this kernel carries them in double-float for either;
 //   linear_tail_scan: the DC tracker (b0 = 1 - rho, a = rho), audio = (vr -
-//     dc * use_dc) * inv_mod, then the de-emphasis, over each of C rows.
+//     dc * use_dc) * inv_mod, then the de-emphasis, over each of C rows;
+//   first_order_scan_cols: one recurrence down each column of a row-major
+//     (n, C) matrix, read in place, written as C rows of n (its JAX twin,
+//     tpudsp/kernels/iir.py:381 first_order_apply_blocked_mc, runs an (L,
+//     L) einsum over column blocks and a lax.scan), at tiles of 32 blocks;
+//     see its own note below.
 //
 // Math, in the plain version's order, so that the two agree bit for bit
 // (built with -fmad=false: no multiply and add is contracted):
@@ -73,7 +78,12 @@
 // us at 3.35 TB/s) and does 2 x 64 operations a sample (12.3 MFLOP, 0.18 us
 // at 67 TFLOP/s). A tile's prefix is 1 M single f32 instructions on its
 // SM (~5 us for the two recurrences), and the chains of entries are 12
-// steps each, one flag's round trip through L2 apiece.
+// steps each, one flag's round trip through L2 apiece. The column entry at
+// BASELINE config 4's de-emphasis ((16384, 1024) f32) moves 134 MB (0.040
+// ms at 3.35 TB/s) and does 64 operations a sample (1.07 GFLOP, 0.016 ms
+// at 67 TFLOP/s); it issues 33 single f32 instructions a sample for the
+// prefix (the products of T's zeros skipped where they change nothing).
+// With a block for each 8 channels it takes 128 of the card's 132 SMs.
 
 #include "tile_chain.cuh"
 
@@ -341,6 +351,167 @@ linear_tail_kernel(const float* __restrict__ tab_dc, const float* __restrict__ t
   }
 }
 
+// The column entry: one recurrence down each column of a row-major (n, C)
+// f32 matrix, read in place, written as C rows of n. A block of threads
+// takes CG = 8 adjacent channels and walks their tiles of CTB = 32 blocks
+// (1024 samples, one warp's run of the scan) in order, each channel's
+// tile entry carried from tile to tile in registers: no block waits for
+// another. STAGES = 2 tiles are in shared memory at once: while the block
+// computes one, the next one's columns are copied in by cp.async (a warp
+// copies the 32 bytes of each of 4 time rows; the channel stride is 32 /
+// CG floats past a multiple of 32 banks, so the copies do not conflict).
+// Warp w owns channel w: lane b takes block b's prefix in place over its
+// input, the warp scans the 32 block sums by shuffles, takes the tile's
+// entry, hands the next tile's on, and writes the channel's row of the
+// tile, coalesced. Per channel it is the rows entry's arithmetic at a tile
+// of CTB blocks (kernels/iir.first_order_apply_blocked with tb =
+// COLS_TILE_BLOCKS).
+constexpr int CG = 8;                       // channels a block, a warp each
+constexpr int CTB = 32;                     // blocks of L in a tile of the column entry
+constexpr int CTILE = CTB * L;              // samples of a channel in a tile
+constexpr int CTHREADS = 32 * CG;
+constexpr int STAGES = 2;                   // tiles in shared memory at once
+constexpr int CSTRIDE = CTB * ROW + 32 / CG;   // a channel's padded rows
+static_assert(CTB == 32 && CG * CTILE % CTHREADS == 0 && (CTB * ROW) % 32 == 0,
+              "column tile geometry");
+constexpr size_t COL_SMEM = STAGES * CG * CSTRIDE * sizeof(float);
+static_assert(COL_SMEM <= 232448, "shared memory");
+
+// One float from global into shared memory by cp.async, or a zero where
+// `in` is false; the copies of a stage are one group
+__device__ __forceinline__ void copy4(float* dst, const float* src, bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(in ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void copies_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// this thread's copies of all but the latest N groups have landed
+template <int N>
+__device__ __forceinline__ void copies_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Recurrence::prefix for the column entry, from registers: T is
+// lower-triangular Toeplitz (T[i, j] = c[i - j] = b0 a^(i-j) for j <= i, 0
+// above the diagonal: kernels/iir.block_table), so for output i the
+// products are xr[j] c[i - j] for j <= i, then the products xr[j] 0 for j
+// > i. Those add +-0 to a sum that started at +0 and so is never -0, which
+// leaves it as it is unless some xr[j] is infinite or NaN: they are added,
+// in order, only in a block that holds such a sample. The same operations
+// on the same values, in the same order, as Recurrence::prefix, wherever
+// they change a bit.
+__device__ __forceinline__ void toeplitz_prefix(const float (&c)[L], const float* xr,
+                                                float* yr) {
+  float acc[L];
+#pragma unroll
+  for (int i = 0; i < L; ++i) acc[i] = 0.0f;
+  bool finite = true;
+#pragma unroll
+  for (int j = 0; j < L; ++j) {
+    const float v = xr[j];
+    finite = finite && fabsf(v) <= 3.402823466e38f;
+#pragma unroll
+    for (int i = j; i < L; ++i) acc[i] = acc[i] + v * c[i - j];
+  }
+  if (!finite) {   // for each i, the products of j = i+1..L-1 in order
+#pragma unroll
+    for (int j = 1; j < L; ++j) {
+      const float zero = xr[j] * 0.0f;
+#pragma unroll
+      for (int i = 0; i < j; ++i) acc[i] = acc[i] + zero;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < L; ++i) yr[i] = acc[i];
+}
+
+// The CG columns of tile `tile` from channel c0 on into sx (CG x CSTRIDE),
+// zeros past the ends, as one group of copies (an empty one past the last
+// tile)
+__device__ __forceinline__ void stage(const float* __restrict__ x, float* sx, int tile,
+                                      int tiles, int n, int C, int c0) {
+  if (tile < tiles) {
+    const int start = tile * CTILE;
+#pragma unroll 8
+    for (int q = 0; q < CG * CTILE / CTHREADS; ++q) {
+      const int k = threadIdx.x + q * CTHREADS;
+      const int g = k % CG, r = k / CG;
+      const bool in = start + r < n && c0 + g < C;
+      copy4(sx + g * CSTRIDE + at(r), in ? x + static_cast<size_t>(start + r) * C + c0 + g : x,
+            in);
+    }
+  }
+  copies_commit();
+}
+
+// x: (n, C) row-major; y: C rows of n; y_prev, y_last: (C,). Block k takes
+// channels k CG .. k CG + CG - 1.
+__global__ void __launch_bounds__(CTHREADS)
+first_order_cols_kernel(const float* __restrict__ tab, const float* __restrict__ x,
+                        const float* __restrict__ y_prev, float* __restrict__ y,
+                        float* __restrict__ y_last, int n, int C) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int lane = threadIdx.x % 32;
+  const int c0 = blockIdx.x * CG;
+  const int ch = c0 + threadIdx.x / 32;   // this warp's channel; lane: its block
+  const int tiles = (n + CTILE - 1) / CTILE;
+  for (int s = 0; s < STAGES - 1; ++s) stage(x, smem + s * CG * CSTRIDE, s, tiles, n, C, c0);
+  float c[L];   // T's first column
+#pragma unroll
+  for (int d = 0; d < L; ++d) c[d] = tab[d * L];
+  Df level[5];
+#pragma unroll
+  for (int k = 0; k < 5; ++k) level[k] = {tab[POW + 2 * (1 << k)], tab[POW + 2 * (1 << k) + 1]};
+  const Df mb{tab[POW + 2 * lane], tab[POW + 2 * lane + 1]};
+  const Df mtb{tab[POW + 2 * CTB], tab[POW + 2 * CTB + 1]};
+  const float power = tab[L * L + lane];
+  Df e{ch < C ? y_prev[ch] : 0.0f, 0.0f};   // the tile's entry E_t
+  for (int tile = 0; tile < tiles; ++tile) {
+    // the tile STAGES - 1 on into the stage the tile before used
+    stage(x, smem + (tile + STAGES - 1) % STAGES * CG * CSTRIDE, tile + STAGES - 1, tiles, n, C,
+          c0);
+    copies_wait<STAGES - 1>();
+    __syncthreads();
+    const int start = tile * CTILE;
+    float* rows = smem + tile % STAGES * CG * CSTRIDE + (threadIdx.x / 32) * CSTRIDE;
+    toeplitz_prefix(c, rows + lane * ROW, rows + lane * ROW);
+    // the inclusive scan of the 32 block sums, in double-float:
+    // P[b] <- a^(L d) P[b-d] + P[b] for b >= d, d = 1, ..., 16
+    Df p{rows[lane * ROW + L - 1], 0.0f};
+#pragma unroll
+    for (int k = 0; k < 5; ++k) {
+      const int d = 1 << k;
+      const Df q{__shfl_up_sync(0xffffffffu, p.hi, d), __shfl_up_sync(0xffffffffu, p.lo, d)};
+      if (lane >= d) p = df_add(df_mul(level[k], q), p);
+    }
+    // block b's entry EH + EL, from P[b-1]; the next tile's, a^(L CTB) E_t
+    // + P[CTB-1]
+    const Df pb{__shfl_up_sync(0xffffffffu, p.hi, 1), __shfl_up_sync(0xffffffffu, p.lo, 1)};
+    const Df eb = lane == 0 ? e : df_add(df_mul(mb, e), pb);
+    rows[lane * ROW + L] = eb.hi + eb.lo;
+    e = df_add(df_mul(mtb, e),
+               Df{__shfl_sync(0xffffffffu, p.hi, 31), __shfl_sync(0xffffffffu, p.lo, 31)});
+    __syncwarp();
+    // y = Yin + a^(i+1) (EH + EL) over the channel's row of the tile
+    if (ch < C) {
+      float* yr = y + static_cast<size_t>(ch) * n;
+#pragma unroll 8
+      for (int b = 0; b < CTB; ++b) {
+        const int k = b * L + lane;
+        const float out = rows[at(k)] + power * rows[b * ROW + L];
+        if (start + k < n) yr[start + k] = out;
+        if (start + k == n - 1) y_last[ch] = out;
+      }
+    }
+    __syncthreads();   // every warp is done with this stage
+  }
+  copies_wait<0>();
+}
+
 }  // namespace
 
 // Plain C entry points for ctypes. tab / tab_dc / tab_de are the host
@@ -382,5 +553,18 @@ extern "C" int linear_tail_scan(const float* tab_dc, const float* tab_de, const 
                        static_cast<cudaStream_t>(stream)>>>(
       tab_dc, tab_de, scal, vr, dc0, de0, pcm, dc_last, de_last, n, rows, tiles,
       make_chain(scratch, base, epoch));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x: (n, C) f32 row-major, read in place; y: C rows of n (the transpose of
+// the (n, C) result); y_prev, y_last: (C,). A block for each 8 channels.
+extern "C" int first_order_scan_cols(const float* tab, const float* x, const float* y_prev,
+                                     float* y, float* y_last, int C, int n, void* stream) {
+  if (C <= 0 || n <= 0) return 0;
+  static const cudaError_t set = allow_smem(first_order_cols_kernel, COL_SMEM);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  first_order_cols_kernel<<<(C + CG - 1) / CG, CTHREADS, COL_SMEM,
+                            static_cast<cudaStream_t>(stream)>>>(tab, x, y_prev, y, y_last, n,
+                                                                 C);
   return static_cast<int>(cudaGetLastError());
 }

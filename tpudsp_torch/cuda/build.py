@@ -49,6 +49,7 @@ SIGNATURES = {
     "first_order_scan": {
         "first_order_scan": [_P] * 6 + [_I] * 6 + [_P],
         "linear_tail_scan": [_P] * 10 + [_I] * 4 + [_P],
+        "first_order_scan_cols": [_P] * 5 + [_I] * 2 + [_P],
     },
     "biquad_scan": {
         "biquad_scan": [_P] * 6 + [_I] * 7 + [_P],

@@ -12,8 +12,9 @@ runs it as one hand-written kernel launch per call:
   complex64 y_prev, in one launch of the same entry (its launches counted
   apart);
 - ``first_order_apply_blocked_mc``: one recurrence down each column of a
-  row-major (N, C) f32 matrix with y_prev (C,): the transpose, then one
-  launch of the same entry over the C rows (its launches counted apart);
+  row-major (N, C) f32 matrix with y_prev (C,): one launch of the column
+  entry ``first_order_scan_cols``, which reads the columns in place and
+  writes C rows of N (its launches counted apart);
 - ``linear_tail``: the AM receiver's DC tracker, audio line and
   de-emphasis over vr (n,), in one launch.
 
@@ -106,19 +107,37 @@ def first_order_apply_blocked_c64(b0: float, a: float, y_prev, x):
 first_order_apply_blocked_c64.launches = 0
 
 
+def _launch_cols(tab, x, y_prev):
+    """One launch of csrc/first_order_scan.cu's ``first_order_scan_cols``
+    over x (N, C) f32 with y_prev (C,). Returns (y_last (C,), the (C, N)
+    rows)."""
+    dev = x.device
+    launch.on_cuda(KERNEL, dev)
+    if x.dim() != 2 or x.shape[0] == 0:
+        raise ValueError(f"{KERNEL}: a column needs at least one sample")
+    n, C = x.shape
+    launch.check(KERNEL, "x", x, torch.float32, (n, C), dev)
+    launch.check(KERNEL, "table", tab, torch.float32, (kiir.TABLE_SIZE,), dev)
+    launch.check(KERNEL, "carry", y_prev, torch.float32, (C,), dev)
+    # the rows and the last values in one allocation
+    out = torch.empty(C * (n + 1), dtype=torch.float32, device=dev)
+    y, last = out[:C * n].view(C, n), out[C * n:]
+    launch.launch("first_order_scan_cols", dev, tab, x, y_prev, y, last, C, n, source=KERNEL)
+    first_order_apply_blocked_mc.launches += 1
+    return last, y
+
+
 def first_order_apply_blocked_mc(b0: float, a: float, y_prev, x):
     """y[n, c] = b0 x[n, c] + a y[n-1, c] down each column of x (N, C)
     f32 with y_prev (C,), as kernels/iir.first_order_apply_blocked_mc
-    computes it: x's columns as C contiguous rows, then one launch over
-    them. Returns (y_last (C,), y (N, C)), y the transpose of the (C, N)
-    rows, as the plain version returns it."""
+    computes it: one launch that reads the columns in place and writes the
+    (C, N) rows. Returns (y_last (C,), y (N, C)), y the transpose of the
+    (C, N) rows, as the plain version returns it."""
     if x.device.type == "cpu":
         return kiir.first_order_apply_blocked_mc(b0, a, y_prev, x)
     y_prev = torch.as_tensor(y_prev, dtype=torch.float32, device=x.device)
     tab = kiir.device_table(float(b0), float(a), x.device)
-    y, (last,) = _launch("first_order_scan", (tab,), None, x.T.contiguous(),
-                         (y_prev.reshape(x.shape[1]).contiguous(),),
-                         counter=first_order_apply_blocked_mc)
+    last, y = _launch_cols(tab, x, y_prev.reshape(x.shape[-1]).contiguous())
     return last, y.T
 
 

@@ -5,7 +5,9 @@ The JAX package runs it as T shifted multiply-adds that XLA fuses into one
 pass (``tpudsp/chains/channelizer.py`` ``channelize``, ``channelize_i16``);
 the port runs it as one hand-written kernel launch a block, which reads
 the carried tail and the block in place (no copy of tail ++ x) and writes
-u (M, C) complex64, the input of the channel IFFT.
+u (M, C) complex64, the input of the channel IFFT. A thread of the kernel
+walks a run of frames of one branch with its taps and its window of
+samples in registers, so it takes at most MAX_TAPS taps a branch.
 
 Dispatch: CPU tensors take the plain version ``kernels/pfb.
 branch_accumulate``; CUDA tensors launch the kernel or raise. There is no
@@ -20,6 +22,7 @@ from ..kernels import pfb as kpfb
 from . import launch
 
 KERNEL = "pfb_branch"
+MAX_TAPS = 16   # the largest T the kernel has an instance for
 # the kernel's input kinds, by the wire type
 _KINDS = {torch.complex64: 0, torch.int16: 1, torch.uint8: 2}
 
@@ -39,6 +42,8 @@ def branch_accumulate(Ht, tail, x, os: int):
         raise ValueError(f"{KERNEL}: x must be complex64, int16 or uint8, got {x.dtype}")
     if os not in (1, 2) or C % os:
         raise ValueError(f"{KERNEL}: oversampling {os} does not divide {C} channels")
+    if T > MAX_TAPS:
+        raise ValueError(f"{KERNEL}: {T} taps a branch, the kernel takes at most {MAX_TAPS}")
     n = x.shape[0]
     wire = () if kind == 0 else (2,)
     htail = (T - 1) * C + C - 1

@@ -72,6 +72,7 @@ def _split64(v: float):
 
 
 TILE_BLOCKS = 256  # blocks of L in one tile of the carry scan (the kernel's threads)
+COLS_TILE_BLOCKS = 32    # the same in a tile of the column entry (first_order_scan_cols)
 WARP = 32          # blocks of a tile in one run of the scan (the kernel's warp)
 TABLE_SIZE = L_BLOCK * L_BLOCK + L_BLOCK + 2 * (TILE_BLOCKS + 1)
 
@@ -133,9 +134,9 @@ def _carry(powers, y_prev, S, tb: int = TILE_BLOCKS):
     of tb blocks, P = ``_tile_scan`` of the block sums and, from the
     tile's entry E_t, E[0] = E_t, E[b] = a^(L b) E_t + P[b-1]; the next
     tile's entry is a^(L tb) E_t + P[tb-1], E_0 = (y_prev, 0). The kernel's
-    order, operation for operation. powers: the (hi, lo) pair of (tb + 1,)
-    f32 block powers a^(L m); y_prev: (C,); S: (C, B), each block's last
-    prefix value. Returns (EH, EL), each (C, B)."""
+    order, operation for operation. powers: the (hi, lo) pair of the f32
+    block powers a^(L m), m = 0..tb or more; y_prev: (C,); S: (C, B),
+    each block's last prefix value. Returns (EH, EL), each (C, B)."""
     MH, ML = powers
     C, B = S.shape
     nt = -(-B // tb)
@@ -154,7 +155,7 @@ def _carry(powers, y_prev, S, tb: int = TILE_BLOCKS):
 
 
 def first_order_apply_blocked(b0: float, a: float, y_prev, x,
-                              L: int = L_BLOCK):
+                              L: int = L_BLOCK, tb: int = TILE_BLOCKS):
     """Blocked first-order scan: y[n] = b0 x[n] + a y[n-1], computed as the
     JAX package computes it, with the block carry as a log-depth scan:
 
@@ -162,8 +163,8 @@ def first_order_apply_blocked(b0: float, a: float, y_prev, x,
        x[bL + j] T[i, j], summed in order j = 0..L-1 (zeros included),
        multiply then add, from T = b0 a^(i-j) rounded from float64;
     2. the block entry values in double-float (``_carry``: a log-depth
-       scan within tiles of 256 blocks, one step from tile to tile), with
-       the powers a^(L m) split from float64;
+       scan within tiles of ``tb`` blocks, 256 for the rows entry, one step
+       from tile to tile), with the powers a^(L m) split from float64;
     3. Y = Yin + a^(i+1) (EH + EL).
 
     f32 rounding stays inside one block (error ~L eps; the JAX package
@@ -189,7 +190,7 @@ def first_order_apply_blocked(b0: float, a: float, y_prev, x,
         Yin = Yin + X[..., j:j + 1] * T[:, j]
     y_prev = torch.as_tensor(y_prev, dtype=torch.float32,
                              device=x.device).reshape(C)
-    EH, EL = _carry((pairs[:, 0], pairs[:, 1]), y_prev, Yin[..., -1])
+    EH, EL = _carry((pairs[:, 0], pairs[:, 1]), y_prev, Yin[..., -1], tb)
     Y = Yin + powers * (EH + EL)[..., None]
     y = Y.reshape(C, B * L)[:, :n]
     return y[:, -1].reshape(x.shape[:-1]), y.reshape(x.shape)
@@ -200,11 +201,12 @@ def first_order_apply_blocked_mc(b0: float, a: float, y_prev, x):
     ``tpudsp/kernels/iir.py`` ``first_order_apply_blocked_mc``): the same
     recurrence y[n, c] = b0 x[n, c] + a y[n-1, c] down axis 0 of a
     row-major (N, C) f32 frame matrix, the polyphase channelizer's layout.
-    Computed as the rows version computes each of x's columns (the plain
-    version of csrc/first_order_scan.cu's column call, bit for bit), where
-    the JAX package forms its (L, L) kernel from f32 powers. y_prev: (C,).
-    Returns (y_last (C,), y (N, C))."""
-    last, y = first_order_apply_blocked(b0, a, y_prev, x.T)
+    Computed as the rows version computes each of x's columns at tiles of
+    COLS_TILE_BLOCKS blocks (the plain version of csrc/first_order_scan.cu's
+    column entry, first_order_scan_cols, bit for bit), where the JAX
+    package forms its (L, L) kernel from f32 powers. y_prev: (C,). Returns
+    (y_last (C,), y (N, C))."""
+    last, y = first_order_apply_blocked(b0, a, y_prev, x.T, tb=COLS_TILE_BLOCKS)
     return last, y.T
 
 
