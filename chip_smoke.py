@@ -173,7 +173,28 @@ fails:
               rows launch built and swapped in, in turns with this tree's,
               and each path's block time beside the parent package's (in
               a process of its own, --channelizer-root);
-11. timing -- per-format block time of the AM receiver (host clock and CUDA
+11. stream -- the io runtime (tpudsp_torch.io) driving the chains on the
+              card from raw radio bytes: StreamRuntime over AMReceiver
+              (config 1, 4M-sample blocks) in int16_raw / i16, uint8_raw /
+              u8 and int16 / c64, four blocks pushed in 2^18-sample chunks;
+              bank16 (config 3, u8, 8M-sample blocks) fed by RadioSource
+              from MockRTLSDRDriver, three blocks, each channel on its
+              tone, and a burst into a one-block ring whose drops are whole
+              chunks, counted alike by the source and the ring; config 4
+              (u8, 1024 x 16384-sample blocks, a ring of 4) pushed at the
+              radio's 200 MB/s for 8 blocks (3 distinct), no byte dropped;
+              every runtime's audio bit for bit against serial calls of a
+              fresh receiver on the same blocks, and its launches a block
+              as serial; the AM i16 and bank16 runtimes pumping at once
+              from two producer threads, each bit-equal; on_audio on the
+              card (a WavSink and per-block metric reads) giving the file
+              write_wav makes of the serial pcm; after stop(), the
+              receiver's state saved and loaded into a fresh receiver,
+              whose next block equals the original's; each cell's samples/s
+              from the first push to the last audio beside the serial
+              loop's and the card's busy share over that window; every
+              examples_torch/*.py run once, exit code 0, its seconds;
+12. timing -- per-format block time of the AM receiver (host clock and CUDA
               events), per-mode block time of the sharded receiver,
               per-callback time of the AMRadio (median of 5 with spread),
               one torch.profiler window over a c64 block (kernel launches
@@ -188,7 +209,7 @@ fails:
               BroadcastAM's DC block (6291 real samples, 2 sections), each
               with its bound (also for --parent's package).
 
-Phases 3-10 also count the kernels' launches on their path (the counts set
+Phases 3-11 also count the kernels' launches on their path (the counts set
 to 0 just before it, read just after) and fail on another count:
 first_order_scan once per AMReceiver block, twice per ShardedAMReceiver
 block (the DC tracker's rows and the de-emphasis) and per AMRadio callback
@@ -199,7 +220,10 @@ bank also am_front_scan 2 and first_order_scan 1 more, stereo
 first_order_scan 1 and first_order_scan_c64 2, SSB agc_scan 2 chunked
 and 1 exact; in phase 10 pfb_branch 1 a block but for the 'conv' engine,
 the FM bank first_order_scan_mc 1, envelope AM first_order_scan 1,
-coherent and mixed am_front_scan 1 and first_order_scan 2).
+coherent and mixed am_front_scan 1 and first_order_scan 2; in phase 11
+am_front_scan 1 and first_order_scan 1 a block for AM, halo_async 1 and
+first_order_scan 1 for bank16, pfb_branch 1 and first_order_scan_mc 1 for
+config 4, all but the two runtimes at once).
 
 Prints the card's name and power limit first, and again (with the torch,
 CUDA and Python versions) just before a "kernels" JSON line, which comes
@@ -223,6 +247,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import traceback
 from concurrent.futures import ThreadPoolExecutor
@@ -2481,6 +2506,363 @@ def phase_channelizer():
     log(f"timing: channelizer: {json.dumps(res)}")
 
 
+# --------------------------------------------------------------------------
+# stream: the io runtime driving the ported chains from raw radio bytes
+N_STREAM_AM = 4             # blocks of each AM runtime cell (a fifth: the checkpoint's next)
+N_STREAM_BANK = 3
+N_STREAM_PFB = 8            # config 4 blocks pushed at the radio's rate ...
+PFB_DISTINCT = 3            # ... of this many distinct ones, replayed in turn
+STREAM_CHUNK = 1 << 18      # samples a push
+PFB_WIRE_BPS = 2 * PFB_FS   # config 4's u8 wire: 200 MB/s
+# sample_format and input_format of the AM cells, by the receiver's format
+AM_STREAM = {"i16": ("int16_raw", "i16"), "u8": ("uint8_raw", "u8"), "c64": ("int16", "c64")}
+PER_BLOCK = {"am": {"am_front_scan": 1, "first_order_scan": 1},
+             "bank16": {"halo_async": 1, "first_order_scan": 1},
+             "config4": {"pfb_branch": 1, "first_order_scan_mc": 1}}
+
+
+def _same_bits(path: str, got, want):
+    """Two lists of float32 audio blocks equal bit for bit."""
+    ok = len(got) == len(want) and all(
+        a.shape == b.shape and np.array_equal(np.asarray(a).view(np.uint32),
+                                              np.asarray(b).view(np.uint32))
+        for a, b in zip(got, want))
+    log(f"stream: {path}: {len(got)} blocks of audio, bit-equal to serial calls {ok}")
+    if not ok:
+        raise AssertionError(f"stream {path}: the runtime's audio differs from serial calls")
+
+
+def _serial(rx, blocks, to_card):
+    """A user's serial loop: each host block to the card, the receiver, its
+    audio back to the host. Returns (the audio, seconds)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = [rx(to_card(b)).cpu().numpy() for b in blocks]
+    return out, time.perf_counter() - t0
+
+
+def _push_all(rt, wire: bytes, chunk: int, bps: float | None = None, marks=None):
+    """Push wire in chunks of ``chunk`` bytes, at ``bps`` bytes a second
+    (by deadline) or as fast as the ring takes them; ``marks`` (a list)
+    gets (bytes pushed, the clock after the push, how late the push began
+    against its deadline) for each chunk."""
+    t0 = time.perf_counter()
+    for i in range(0, len(wire), chunk):
+        late = 0.0
+        if bps:
+            late = time.perf_counter() - (t0 + i / bps)
+            if late < 0:
+                time.sleep(-late)
+        rt.push(wire[i:i + chunk])
+        if marks is not None:
+            marks.append((min(i + chunk, len(wire)), time.perf_counter(), max(late, 0.0)))
+
+
+def _pusher(rt, wire: bytes, chunk: int, bps: float | None = None, marks=None):
+    """A feed for _drive: a producer thread pushing wire, ended by joining
+    it and stopping the runtime."""
+    def start():
+        th = threading.Thread(target=_push_all, args=(rt, wire, chunk, bps, marks))
+        th.start()
+
+        def finish():
+            th.join()
+            rt.stop(drain=True)
+        return finish
+    return start
+
+
+def _drive(rt, start, n_blocks: int, profile: bool = False):
+    """Feed rt (``start()`` begins the feed and returns what ends it) and
+    pop n_blocks of audio on this thread: (the audio, seconds from the
+    feed's start to the last audio, the device's busy share over that
+    window by profile_block's method, or None, and the clock at each
+    block's audio)."""
+    import torch
+    from torch.profiler import ProfilerActivity
+    ctx = (torch.profiler.profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+           if profile else contextlib.nullcontext())
+    with ctx as prof:
+        t0 = time.perf_counter()
+        finish = start()
+        out, popped = [], []
+        for _ in range(n_blocks):
+            a = rt.pop_audio(timeout=120)
+            if a is None:
+                raise AssertionError(f"stream: {len(out)} of {n_blocks} blocks of audio came")
+            out.append(a)
+            popped.append(time.perf_counter())
+        wall = time.perf_counter() - t0
+        finish()
+    return out, wall, device_busy(list(prof.events())) if profile else None, popped
+
+
+def _cell(path: str, make_rt, start_of, n_blocks: int, n_samples: int, serial, serial_s,
+          per_block: dict):
+    """One runtime cell: a run with its launches counted (the counts set to
+    0 just before, read just after) and its audio bit for bit against the
+    serial calls, then a profiled run, also bit-equal; logs the runtime's
+    samples/s beside the serial loop's and the busy share, and where the
+    feed marks its pushes (``start_of(rt, marks)``) each block's latency
+    from the push of its last byte to its audio and how far the producer
+    fell behind its schedule."""
+    import torch
+    torch.cuda.synchronize()
+    zero_counts()                                          # the path starts
+    rt = make_rt()
+    marks: list = []
+    out, wall, _, popped = _drive(rt, start_of(rt, marks), n_blocks)
+    torch.cuda.synchronize()
+    expect_counts(f"stream {path}", read_counts(),         # ... and ends
+                  {k: n_blocks * v for k, v in per_block.items()})
+    _same_bits(path, out, serial)
+    if rt.stats["dropped_bytes"]:
+        raise AssertionError(f"stream {path}: {rt.stats}")
+    rt = make_rt()
+    out, _, busy, _ = _drive(rt, start_of(rt, None), n_blocks, profile=True)
+    _same_bits(f"{path} (profiled run)", out, serial)
+    res = {"samples_per_s": n_samples / wall, "wall_s": wall,
+           "serial_samples_per_s": n_samples / serial_s, "serial_s": serial_s,
+           "busy_share": busy["busy_share"], "busy_ms": busy["busy_ms"],
+           "window_ms": busy["window_ms"], "device_activities": busy["device_activities"]}
+    log(f"timing: stream {path}: runtime {res['samples_per_s'] / 1e6:.1f} Msamp/s "
+        f"({n_samples} samples, {wall:.4f} s from the first push to the last audio), serial "
+        f"loop {res['serial_samples_per_s'] / 1e6:.1f} Msamp/s ({serial_s:.4f} s); device "
+        f"busy {busy['busy_ms']:.3f} of {busy['window_ms']:.3f} ms "
+        f"({busy['device_activities']} activities, share {busy['busy_share']})")
+    if marks:
+        block_bytes = marks[-1][0] // n_blocks
+        pushed = [next(t for end, t, _ in marks if end >= (k + 1) * block_bytes)
+                  for k in range(n_blocks)]
+        res.update(latency_ms=[(a - b) * 1e3 for a, b in zip(popped, pushed)],
+                   producer_late_ms=max(late for _, _, late in marks) * 1e3)
+        log(f"timing: stream {path}: each block's audio "
+            f"{[round(v, 3) for v in res['latency_ms']]} ms after the push of its last "
+            f"byte; the producer at most {res['producer_late_ms']:.3f} ms behind its schedule")
+    results.setdefault("stream", {})[path] = res
+    return rt
+
+
+def stream_am(serials: dict):
+    """Config 1's AMReceiver at 4M-sample blocks through StreamRuntime in
+    each wire format, pushed in STREAM_CHUNK-sample chunks; the serial
+    loop's audio and block 5 (the checkpoint's) kept in ``serials``."""
+    import torch
+    from tpudsp_torch.chains.am import AMConfig, AMReceiver
+    from tpudsp_torch.io import StreamRuntime, bytes_to_iq
+    data = wire_blocks(N_STREAM_AM + 1, BLOCK_4M, seed=40)
+    for fmt, (sample_format, input_format) in AM_STREAM.items():
+        raw = data["u8" if fmt == "u8" else "i16"]
+        wire = b"".join(b.tobytes() for b in raw[:N_STREAM_AM])
+        to_card = ((lambda b: torch.from_numpy(bytes_to_iq(b.tobytes())).to(DEV))
+                   if fmt == "c64" else (lambda b: torch.from_numpy(b).to(DEV)))
+        make_rx = lambda: AMReceiver(AMConfig(), BLOCK_4M, input_format, device=DEV)
+        serial, _ = _serial(make_rx(), raw[:N_STREAM_AM], to_card)   # also the warm-up
+        _, serial_s = _serial(make_rx(), raw[:N_STREAM_AM], to_card)
+        chunk = STREAM_CHUNK * (2 if fmt == "u8" else 4)
+        _cell(f"am {fmt} ({sample_format})",
+              lambda: StreamRuntime(make_rx(), sample_format=sample_format, capacity_blocks=8),
+              lambda rt, marks: _pusher(rt, wire, chunk, marks=marks), N_STREAM_AM,
+              N_STREAM_AM * BLOCK_4M,
+              serial, serial_s, PER_BLOCK["am"])
+        serials[f"am {fmt}"] = (raw, wire, serial, to_card)
+
+
+def bank16_render(n: int):
+    """bank16's carriers (bank_signal, made on the card) as complex64 on
+    the host, and a render(n0, n) over them for MockRTLSDRDriver."""
+    import torch
+    x = bank_signal(n, ("fm",) * 16, seed=41).to(torch.complex64).cpu().numpy()
+    return lambda n0, m: x[n0:n0 + m]
+
+
+def stream_bank16(serials: dict):
+    """Config 3's bank16 (u8, 8M-sample blocks) fed by RadioSource from a
+    MockRTLSDRDriver over its render, 'uint8_raw': bit-equal to serial
+    calls on the mock's bytes, each channel on its tone; a burst into a
+    one-block ring drops whole chunks, counted alike by the source and the
+    ring."""
+    import torch
+    from tpudsp_torch.chains import BankConfig, ReceiverBank
+    from tpudsp_torch.io import MockRTLSDRDriver, RadioSource, StreamRuntime
+    cfg = BankConfig(freqs=BANK_FREQS)
+    total = N_STREAM_BANK * N_BANK
+    render = bank16_render(total)
+    chunks = []
+    MockRTLSDRDriver(render, total, sample_rate=2.4e6, variable=False).read_bytes_async(
+        lambda b, ctx: chunks.append(b), num_bytes=2 * total)
+    wire = b"".join(chunks)
+    raw = [np.frombuffer(wire, np.uint8)[2 * k * N_BANK:2 * (k + 1) * N_BANK].reshape(-1, 2)
+           for k in range(N_STREAM_BANK)]
+    to_card = lambda b: torch.from_numpy(b.copy()).to(DEV)
+    make_rx = lambda: ReceiverBank(cfg, N_BANK, input_format="u8", device=DEV)
+    serial, _ = _serial(make_rx(), raw, to_card)
+    _, serial_s = _serial(make_rx(), raw, to_card)
+
+    def start_of(rt, _marks):
+        def start():
+            src = RadioSource(rt)
+            src.run_async(MockRTLSDRDriver(render, total, sample_rate=2.4e6, variable=True,
+                                           seed=42), chunk_bytes=262144)
+
+            def finish():
+                while src.bytes_delivered < 2 * total:
+                    time.sleep(0.01)
+                src.stop(drain=True)
+                if src.overflow_chunks or src.error is not None:
+                    raise AssertionError(f"stream bank16: {src.stats}")
+            return finish
+        return start
+    _cell("bank16 u8 (RadioSource, mock RTL-SDR)",
+          lambda: StreamRuntime(make_rx(), sample_format="uint8_raw", capacity_blocks=8),
+          start_of, N_STREAM_BANK, total, serial, serial_s, PER_BLOCK["bank16"])
+    last = serial[-1]
+    tones = [_pure_tone_hz(last[c] - last[c].mean(), cfg.audio_rate) for c in range(16)]
+    off = max(abs(f - (400.0 + 150.0 * c)) for c, f in enumerate(tones))
+    log(f"stream: bank16 tones {[round(f, 1) for f in tones]} Hz, worst {off:.2f} Hz off")
+    if not off < 25.0:
+        raise AssertionError("stream bank16: a channel is off its tone")
+    # the burst: the pump held until the mock is done, a ring of one block
+    bank, held = make_rx(), threading.Event()
+
+    def held_bank(iq):
+        held.wait(60)
+        return bank(iq)
+    rt = StreamRuntime(held_bank, N_BANK, sample_format="uint8_raw", capacity_blocks=1,
+                       device=DEV)
+    src = RadioSource(rt)
+    MockRTLSDRDriver(render, total, sample_rate=2.4e6, variable=True, burst_chunks=10 ** 9,
+                     seed=43).read_bytes_async(src, num_bytes=min(262144, N_BANK // 8))
+    held.set()
+    src.stop(drain=True)
+    audio, st = list(rt), src.stats
+    log(f"stream: bank16 burst into a one-block ring: {st}")
+    if not (st["overflow_chunks"] > 0 and st["overflow_bytes"] == st["dropped_bytes"]
+            == rt._stream.dropped and audio and all(np.isfinite(a).all() for a in audio)):
+        raise AssertionError("stream bank16 burst: drops not counted as whole chunks")
+    serials["bank16 u8"] = (raw, wire, serial, to_card)
+
+
+def stream_config4():
+    """Config 4's ChannelizedBank (u8) over 'uint8_raw', a ring of 4 blocks,
+    N_STREAM_PFB blocks pushed at the radio's 200 MB/s: no byte dropped,
+    bit-equal to serial calls over the same blocks."""
+    import torch
+    from tpudsp_torch.chains import ChannelizedBank, ChannelizedBankConfig
+    from tpudsp_torch.io import StreamRuntime
+    u8 = wire_of(pfb_signal(PFB_DISTINCT, seed=44))["u8"].cpu().numpy()
+    distinct = [u8[k * N_PFB:(k + 1) * N_PFB] for k in range(PFB_DISTINCT)]
+    raw = [distinct[k % PFB_DISTINCT] for k in range(N_STREAM_PFB)]
+    wire = b"".join(b.tobytes() for b in raw)
+    to_card = lambda b: torch.from_numpy(b).to(DEV)
+    make_rx = lambda: ChannelizedBank(ChannelizedBankConfig(), N_PFB, input_format="u8",
+                                      device=DEV)
+    serial, _ = _serial(make_rx(), raw, to_card)
+    _, serial_s = _serial(make_rx(), raw, to_card)
+    _cell("config4 u8 paced at 100 Msps",
+          lambda: StreamRuntime(make_rx(), sample_format="uint8_raw", capacity_blocks=4),
+          lambda rt, marks: _pusher(rt, wire, 2 * STREAM_CHUNK, PFB_WIRE_BPS, marks),
+          N_STREAM_PFB, N_STREAM_PFB * N_PFB, serial, serial_s, PER_BLOCK["config4"])
+
+
+def stream_concurrent(serials: dict):
+    """The AM i16 and bank16 u8 runtimes pumping at once, each from its own
+    producer thread: each bit-equal to its serial run (their launches are
+    not counted: two pumps add to the wrappers' counts at once)."""
+    from tpudsp_torch.chains import BankConfig, ReceiverBank
+    from tpudsp_torch.chains.am import AMConfig, AMReceiver
+    from tpudsp_torch.io import StreamRuntime
+    rts = {"am i16": StreamRuntime(AMReceiver(AMConfig(), BLOCK_4M, "i16", device=DEV),
+                                   sample_format="int16_raw", capacity_blocks=8),
+           "bank16 u8": StreamRuntime(ReceiverBank(BankConfig(freqs=BANK_FREQS), N_BANK,
+                                                   input_format="u8", device=DEV),
+                                      sample_format="uint8_raw", capacity_blocks=8)}
+    chunk = {"am i16": 4 * STREAM_CHUNK, "bank16 u8": 262144}
+    threads = [threading.Thread(target=_push_all, args=(rt, serials[k][1], chunk[k]))
+               for k, rt in rts.items()]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    for rt in rts.values():
+        rt.stop(drain=True)
+    log(f"stream: two runtimes at once: {time.perf_counter() - t0:.3f} s")
+    for k, rt in rts.items():
+        _same_bits(f"{k}, beside the other runtime", list(rt), serials[k][2])
+
+
+def stream_consumer(serials: dict, scratch: Path):
+    """on_audio on the card: a WavSink and fm_stereo's metric reads; the
+    file equals write_wav of the serial pcm; after stop(), the receiver's
+    state saved, loaded into a fresh receiver, which then gives the
+    original's next block bit for bit."""
+    from tpudsp_torch.chains.am import AMConfig, AMReceiver
+    from tpudsp_torch.io import StreamRuntime, WavSink, write_wav
+    from tpudsp_torch.io.checkpoint import load_state, save_state
+    raw, wire, serial, to_card = serials["am c64"]
+    rx = AMReceiver(AMConfig(), BLOCK_4M, device=DEV)
+    levels = []
+    with WavSink(str(scratch / "stream.wav"), 48_000) as sink:
+        def on_audio(pcm, meta):
+            sink(pcm)
+            m = meta["metrics"]
+            levels.append((float(m.rssi), float(m.pll_freq)))
+        rt = StreamRuntime(rx, on_audio=on_audio, capacity_blocks=8)
+        _push_all(rt, wire, 4 * STREAM_CHUNK)
+        rt.stop(drain=True)
+        save_state(str(scratch / "am.npz"), rx.state)
+    write_wav(str(scratch / "serial.wav"), np.concatenate(serial), 48_000)
+    same = (scratch / "stream.wav").read_bytes() == (scratch / "serial.wav").read_bytes()
+    log(f"stream: on_audio WavSink, {len(levels)} blocks (rssi, pll_freq per block "
+        f"{levels}): file equal to write_wav of the serial pcm {same}")
+    if not (same and len(levels) == N_STREAM_AM):
+        raise AssertionError("stream: the WavSink's file differs")
+    rx2 = AMReceiver(AMConfig(), BLOCK_4M, device=DEV)
+    rx2.state = load_state(str(scratch / "am.npz"), rx2.state)
+    nxt = to_card(raw[N_STREAM_AM])
+    a, b = rx(nxt).cpu().numpy(), rx2(nxt).cpu().numpy()
+    _same_bits("checkpoint after stop(), the next block: resumed vs original", [b], [a])
+
+
+def stream_examples(scratch: Path):
+    """Every examples_torch/*.py once, all at once, each a process of its
+    own in a scratch directory: exit code 0."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+
+    def run(script: Path):
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, str(script)], cwd=scratch, env=env,
+                             capture_output=True, text=True, timeout=600)
+        return script.name, res, time.perf_counter() - t0
+    scripts = sorted((ROOT / "examples_torch").glob("*.py"))
+    with ThreadPoolExecutor(len(scripts)) as ex:
+        runs = list(ex.map(run, scripts))
+    for name, res, secs in runs:
+        tail = (res.stdout.strip().splitlines() or [""])[-1]
+        log(f"stream: examples_torch/{name}: exit {res.returncode} in {secs:.1f} s: {tail}")
+        if res.returncode != 0:
+            log(res.stderr[-3000:])
+    if any(res.returncode for _, res, _ in runs):
+        raise AssertionError("stream: an example failed")
+
+
+def phase_stream():
+    """The io runtime on the card: StreamRuntime, the ingest ring,
+    RadioSource and the mock driver, WavSink, checkpoints, the examples."""
+    import tempfile
+    serials: dict = {}
+    stream_am(serials)
+    stream_bank16(serials)
+    stream_config4()
+    stream_concurrent(serials)
+    with tempfile.TemporaryDirectory() as d:
+        stream_consumer(serials, Path(d))
+        stream_examples(Path(d))
+    log(f"timing: stream: {json.dumps(results.get('stream', {}))}")
+
+
 RADIO_STAGES = ("bandpass", "resample", "agc", "am", "audio_filter")
 
 
@@ -2536,14 +2918,21 @@ def profile_block(rx, blocks):
     machine: the bank block's front kernel, the AM block's front matmul
     in the timing phase), so its busy time is a lower bound."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     rx(blocks[0])
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         rx(blocks[1])
         torch.cuda.synchronize()
-    events = list(prof.events())
+    return device_busy(list(prof.events()))
+
+
+def device_busy(events) -> dict:
+    """Of a profiler window's events: the device activities (kernels,
+    copies, sets; not the host's spans), their busy time (the union of
+    their intervals) and its share of the window, from the first event to
+    the last, and the device time of the eight busiest kernels by name."""
+    from torch.autograd import DeviceType
     # the device's own activities: a record_function span (ReceiverBank.step)
     # also shows on the device's timeline, under its host-side name
     host = {e.name for e in events if e.device_type != DeviceType.CUDA}
@@ -2859,7 +3248,7 @@ PHASES = [("build", phase_build), ("kernel", phase_kernel), ("chain", phase_chai
           ("width", phase_width), ("sharded", phase_sharded), ("compat", phase_compat),
           ("options", phase_options), ("surface", phase_surface),
           ("receivers", phase_receivers), ("channelizer", phase_channelizer),
-          ("timing", phase_timing)]
+          ("stream", phase_stream), ("timing", phase_timing)]
 
 KERNELS = [
     ("am_front_scan", "tpudsp_torch/csrc/am_front_scan.cu",

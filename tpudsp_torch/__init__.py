@@ -30,7 +30,10 @@ its front end one halo_async launch on one card), WBFM mono and stereo
 (``chains.wbfm``), the SSB receiver (``chains.ssb``) and the polyphase
 channelizer with its 1024-channel demod bank (``chains.channelizer``),
 whose branch sum is the CUDA kernel ``csrc/pfb_branch.cu`` and whose FM
-de-emphasis is one first_order_scan launch over the channels' rows.
+de-emphasis is one first_order_scan launch over the channels' rows. The
+io layer (``io``: the streaming runtime, the native ingest ring, the
+driver-shaped source, WAV sinks, checkpoints) drives any of them from a
+radio's raw bytes, and ``utils`` holds the profiling helpers.
 Everything runs on the card ("cuda") unless the caller asks for the CPU.
 """
 

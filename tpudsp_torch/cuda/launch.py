@@ -81,6 +81,12 @@ def launch(kernel: str, device, *args, source: str | None = None, on: int | None
 # order, so every blocked scan on it shares the buffer without clearing it.
 # Every kernel's links are LINK int32 wide with the flag last, so a flag
 # slot never holds another kernel's value.
+# One thread enqueues on a stream: a launch's ticket base is taken here
+# and its blocks count from it in launch order, so two threads enqueuing
+# on one stream could take bases in one order and launch in the other,
+# and the later launch's blocks would take tickets past its grid. The
+# port holds to it: a thread launches on its current stream, and every
+# io.StreamRuntime pumps on a stream of its own (io/stream.py).
 _chains: dict = {}
 _EPOCHS = 2 ** 31 - 1
 LINK = 8

@@ -71,8 +71,9 @@ def as_f32(x, device, name="input"):
 
 
 def to_numpy(t):
-    """A tensor on any device -> a host numpy array."""
-    return t.detach().cpu().numpy()
+    """A tensor on any device -> a host numpy array (anything else goes
+    through ``np.asarray``)."""
+    return t.detach().cpu().numpy() if torch.is_tensor(t) else np.asarray(t)
 
 
 def to_tensor(v, device):

@@ -11,22 +11,15 @@ from ..kernels import fir as kfir
 from ..kernels import hilbert as khilb
 from .base import StatefulOp, resolve_device, to_numpy
 
-_I16_SCALE = np.float32(1.0) / np.float32(32767.0)
-
 
 def bytes_to_iq(byts: bytes) -> np.ndarray:
     """Raw interleaved int16 IQ bytes -> complex64 scaled by 1/32767
-    (reference utility.hpp:61-69). Each value is multiplied by the f32
-    reciprocal 1.0f/32767.0f, as the JAX package's native conversion
-    (tpudsp/io/native/ingest.cpp) does; trailing bytes that do not complete
-    a 4-byte IQ pair are dropped. A host-side numpy conversion: the port
-    keeps its own copy and imports nothing of tpudsp.io."""
-    n = len(byts) // 4
-    x = np.frombuffer(byts, np.int16, count=2 * n).astype(np.float32) * _I16_SCALE
-    out = np.empty(n, np.complex64)
-    out.real = x[0::2]
-    out.imag = x[1::2]
-    return out
+    (reference utility.hpp:61-69). Delegates to the port's native-backed
+    conversion in ``io/ingest.py``, as the JAX package's op does: each
+    value times the f32 reciprocal 1.0f/32767.0f; trailing bytes that do
+    not complete a 4-byte IQ pair are dropped."""
+    from ..io.ingest import bytes_to_iq as _impl
+    return _impl(byts)
 
 
 def _as_1d(inp, name: str, device):
