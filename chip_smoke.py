@@ -173,7 +173,34 @@ fails:
               rows launch built and swapped in, in turns with this tree's,
               and each path's block time beside the parent package's (in
               a process of its own, --channelizer-root);
-11. stream -- the io runtime (tpudsp_torch.io) driving the chains on the
+11. parallel -- the rest of the sharded runtime on the card through its
+              entry points, on one-rank meshes (NCCL refuses two ranks on
+              one card; chip_sharded.py runs the rings): ShardedBank on a
+              (1, 1) mesh, bank16 on three 8M-sample blocks in c64 / i16 /
+              u8 with halo='ppermute' and c64 with halo='async', and the
+              mixed fm / coherent am / usb / lsb bank, against the
+              single-card ReceiverBank (the mixed one with backend 'xla')
+              on the same blocks; ShardedChannelizer and
+              ShardedChannelizedBank at config 4's width with c1 = 32 (the
+              twiddle and both transform stages run) and c1 = None: Y of
+              the 16 carriers' channels against Channelizer (>= 120 dB),
+              the FM bank in c64 / i16 / u8 and the coherent AM bank
+              against ChannelizedBank (>= 100 dB on the carriers);
+              ShardedScanner (config 5's one-chip core, bench.py:541-547)
+              FM c64 / u8 and coherent AM against ChannelizedBank (>= 100
+              dB); PipelinedAMReceiver with both stages on the card, each
+              on its own stream, four 4M-sample blocks and the flush in
+              c64 / i16 / u8, bit for bit against AMReceiver(backend=
+              'xla'); ElasticRunner over AMReceiver on 4M-sample blocks,
+              snapshot_every=2, a chain that raises once at block 3: the
+              resumed and replayed pcm bit for bit against an
+              uninterrupted run. Each comparison is bit for bit or prints
+              its SNR and max abs difference (the sharded bank >= 120
+              dB); each path's launches a block; the bank, the split
+              channelized bank, the scanner and the pipeline timed (host
+              clock median of 5 with spread, CUDA events) beside their
+              single-card chains;
+12. stream -- the io runtime (tpudsp_torch.io) driving the chains on the
               card from raw radio bytes: StreamRuntime over AMReceiver
               (config 1, 4M-sample blocks) in int16_raw / i16, uint8_raw /
               u8 and int16 / c64, four blocks pushed in 2^18-sample chunks;
@@ -194,7 +221,7 @@ fails:
               from the first push to the last audio beside the serial
               loop's and the card's busy share over that window; every
               examples_torch/*.py run once, exit code 0, its seconds;
-12. timing -- per-format block time of the AM receiver (host clock and CUDA
+13. timing -- per-format block time of the AM receiver (host clock and CUDA
               events), per-mode block time of the sharded receiver,
               per-callback time of the AMRadio (median of 5 with spread),
               one torch.profiler window over a c64 block (kernel launches
@@ -209,7 +236,7 @@ fails:
               BroadcastAM's DC block (6291 real samples, 2 sections), each
               with its bound (also for --parent's package).
 
-Phases 3-11 also count the kernels' launches on their path (the counts set
+Phases 3-12 also count the kernels' launches on their path (the counts set
 to 0 just before it, read just after) and fail on another count:
 first_order_scan once per AMReceiver block, twice per ShardedAMReceiver
 block (the DC tracker's rows and the de-emphasis) and per AMRadio callback
@@ -223,7 +250,14 @@ the FM bank first_order_scan_mc 1, envelope AM first_order_scan 1,
 coherent and mixed am_front_scan 1 and first_order_scan 2; in phase 11
 am_front_scan 1 and first_order_scan 1 a block for AM, halo_async 1 and
 first_order_scan 1 for bank16, pfb_branch 1 and first_order_scan_mc 1 for
-config 4, all but the two runtimes at once).
+config 4, all but the two runtimes at once; in phase 11 the sharded bank
+halo_async 1 (2 with halo='async') and first_order_scan 1 a block, the
+mixed one am_front_scan 2 (the chunked launch and the padded last
+chunk's exact re-run) and first_order_scan 2, the split channelizer
+pfb_branch 1, its FM bank first_order_scan_mc 1 and its coherent AM bank
+am_front_scan 2 and first_order_scan 2, the scanner pfb_branch 1 and
+first_order_scan 1 (FM) or am_front_scan 2 and first_order_scan 2 (AM),
+the pipeline agc_scan 1, pll_scan 2 and first_order_scan 2 a back end).
 
 Prints the card's name and power limit first, and again (with the torch,
 CUDA and Python versions) just before a "kernels" JSON line, which comes
@@ -2507,6 +2541,278 @@ def phase_channelizer():
 
 
 # --------------------------------------------------------------------------
+# parallel: the rest of the sharded runtime on one card (one-rank meshes;
+# NCCL refuses two ranks on one card: chip_sharded.py runs the rings)
+N_PIPE = 4                  # the pipeline's and the elastic runner's 4M-sample blocks
+
+
+def _snr_dev(ref, y) -> float:
+    """SNR (dB) of y against ref, reduced on the card in float64."""
+    import torch
+    ref, y = ref.to(torch.complex128 if ref.is_complex() else torch.float64), y.to(ref.dtype)
+    err = float((ref - y).abs().square().sum())
+    sig = float(ref.abs().square().sum())
+    return float("inf") if err == 0 else 10.0 * np.log10(sig / err)
+
+
+def _against(what: str, ref, y, bar: float):
+    """y against ref on the card: bit for bit, or the SNR and max-abs
+    difference printed and held to ``bar`` dB."""
+    import torch
+    if ref.shape != y.shape or not bool(torch.isfinite(y).all()):
+        raise AssertionError(f"parallel: {what}: shape {tuple(y.shape)} vs {tuple(ref.shape)} "
+                             "or not finite")
+    if torch.equal(ref, y):
+        log(f"parallel: {what}: bit for bit")
+        return
+    s = _snr_dev(ref, y)
+    log(f"parallel: {what}: {s:.2f} dB, max abs difference "
+        f"{float((ref - y).abs().max()):.3e} (bar {bar:g})")
+    if not s >= bar:
+        raise AssertionError(f"parallel: {what} {s:.2f} dB, bar {bar:g}")
+
+
+def _parallel_times(name: str, rx, blocks, beside: dict):
+    """rx's block time (host clock median of 5 with spread, CUDA events)
+    beside the chains in ``beside``, each on the same blocks in turn."""
+    out = {}
+    for label, r in {name: rx, **beside}.items():
+        med, spread = _block_times(r, blocks)
+        out[label] = {"host_ms": med * 1e3, "host_spread": spread,
+                      "cuda_event_ms": _block_device_ms(r, blocks)}
+        log(f"timing: parallel {label}: median {med * 1e3:.3f} ms of 5 (spread "
+            f"{spread * 100:.1f}%), CUDA events {out[label]['cuda_event_ms']:.3f} ms")
+    results.setdefault("parallel", {})[name] = out
+
+
+def parallel_bank():
+    """ShardedBank on a (1, 1) mesh: bank16 on three 8M-sample blocks in
+    c64 / i16 / u8 with halo='ppermute', c64 with halo='async', and the
+    mixed fm / coherent am / usb / lsb bank, each against the single-card
+    ReceiverBank on the same blocks (the mixed one with backend 'xla', the
+    sharded coherent back end's chunk)."""
+    import torch
+    from tpudsp_torch.chains import BankConfig, ReceiverBank
+    from tpudsp_torch.parallel import ShardedBank, make_mesh
+    mesh = make_mesh(1, 1, DEV)
+    cfg = BankConfig(freqs=BANK_FREQS)
+    wire = {k: _split(v, N_BANK) for k, v in wire_of(bank_signal(3 * N_BANK, ("fm",) * 16,
+                                                                   seed=40)).items()}
+    fm = {"halo_async": 1, "first_order_scan": 1}
+    for fmt, halo in (("c64", "ppermute"), ("i16", "ppermute"), ("u8", "ppermute"),
+                      ("c64", "async")):
+        sb = ShardedBank(cfg, mesh, N_BANK, halo=halo, input_format=fmt, device=DEV)
+        # async: the interior and the boundary outputs, two launches a block
+        want = dict(fm, halo_async=2) if halo == "async" else fm
+        outs, _ = _run_chain(f"ShardedBank 1x1 bank16 {fmt} {halo}", sb, wire[fmt], want,
+                             phase="parallel")
+        ref = ReceiverBank(cfg, N_BANK, input_format=fmt, device=DEV)
+        y_ref = torch.cat([ref(b) for b in wire[fmt]], 1)
+        _against(f"ShardedBank bank16 {fmt} {halo} vs ReceiverBank, 3 blocks", y_ref,
+                 torch.cat(outs, 1), 120.0)
+        if fmt == "c64" and halo == "async":
+            _parallel_times("ShardedBank bank16 c64 async", sb, wire[fmt] * 2, {
+                "ShardedBank bank16 c64 ppermute": ShardedBank(cfg, mesh, N_BANK, device=DEV),
+                "ReceiverBank bank16 c64": ref})
+    cfg = BankConfig(freqs=BANK_FREQS, demod=MIXED, am_coherent=True)
+    blocks = _split(bank_signal(3 * N_BANK, MIXED, seed=41).to(torch.complex64), N_BANK)
+    sb = ShardedBank(cfg, mesh, N_BANK, device=DEV)
+    # am_front_scan: the chunked launch and the exact re-run of the padded
+    # last chunk (800,000 channel samples, chunk 3840)
+    outs, _ = _run_chain("ShardedBank 1x1 mixed", sb, blocks,
+                         {"halo_async": 1, "am_front_scan": 2, "first_order_scan": 2},
+                         phase="parallel")
+    ref = ReceiverBank(cfg, N_BANK, backend="xla", device=DEV)
+    _against("ShardedBank mixed fm / coherent am / usb / lsb vs ReceiverBank(backend='xla'), "
+             "3 blocks", torch.cat([ref(b) for b in blocks], 1), torch.cat(outs, 1), 120.0)
+
+
+def parallel_channelizer():
+    """ShardedChannelizer and ShardedChannelizedBank on a one-rank mesh at
+    config 4's width (ChannelizedBankConfig(), blocks of 1024 x 16384),
+    with c1 = 32 (the twiddle and both transform stages run) and c1 =
+    None: Y of the carriers' channels against the single-card Channelizer
+    (>= 120 dB), the FM bank in c64 / i16 / u8 and the coherent AM bank
+    against the single-card ChannelizedBank (>= 100 dB)."""
+    import torch
+    from tpudsp_torch.chains import ChannelizedBank, ChannelizedBankConfig, Channelizer
+    from tpudsp_torch.parallel import (ShardedChannelizedBank, ShardedChannelizer,
+                                       make_mesh)
+    mesh = make_mesh(1, 1, DEV)
+    cfg = ChannelizedBankConfig()
+    carriers = torch.tensor(PFB_FM + PFB_AM, device=DEV)
+    wire = {k: _split(v, N_PFB) for k, v in wire_of(pfb_signal(3, seed=42)).items()}
+    ref = Channelizer(cfg.channelizer, N_PFB, device=DEV)
+    Y_ref = torch.cat([ref(b) for b in wire["c64"]], 0).index_select(1, carriers)
+    for c1 in (32, None):
+        sc = ShardedChannelizer(cfg.channelizer, mesh, N_PFB, c1=c1, device=DEV)
+        outs, _ = _run_chain(f"ShardedChannelizer c1={c1}", sc, wire["c64"], {"pfb_branch": 1},
+                             phase="parallel")
+        _against(f"ShardedChannelizer c1={c1} Y of the 16 carriers' channels vs Channelizer, "
+                 "3 blocks", Y_ref, torch.cat(outs, 0).index_select(1, carriers), 120.0)
+    fm = torch.tensor(PFB_FM, device=DEV)
+    for fmt, c1 in (("c64", 32), ("i16", 32), ("u8", 32), ("c64", None)):
+        sb = ShardedChannelizedBank(cfg, mesh, N_PFB, c1=c1, input_format=fmt, device=DEV)
+        outs, _ = _run_chain(f"ShardedChannelizedBank FM {fmt} c1={c1}", sb, wire[fmt],
+                             {"pfb_branch": 1, "first_order_scan_mc": 1}, phase="parallel")
+        rb = ChannelizedBank(cfg, N_PFB, input_format=fmt, device=DEV)
+        _against(f"ShardedChannelizedBank FM {fmt} c1={c1} audio of the FM carriers vs "
+                 "ChannelizedBank, 3 blocks", torch.cat([rb(b) for b in wire[fmt]], 1)
+                 .index_select(0, fm), torch.cat(outs, 1).index_select(0, fm), 100.0)
+        if fmt == "c64" and c1 == 32:
+            _parallel_times("ShardedChannelizedBank config 4 FM c64 c1=32", sb,
+                            wire[fmt] * 2, {"ChannelizedBank config 4 FM c64": rb})
+    acfg = ChannelizedBankConfig(demod="am", am_coherent=True)
+    am = torch.tensor(PFB_AM, device=DEV)
+    sb = ShardedChannelizedBank(acfg, mesh, N_PFB, c1=32, device=DEV)
+    # am_front_scan: the chunked launch and the exact re-run of the padded
+    # last chunk (16,384 frames, the 'xla' chunk 3840)
+    outs, _ = _run_chain("ShardedChannelizedBank coherent AM c1=32", sb, wire["c64"],
+                         {"pfb_branch": 1, "am_front_scan": 2, "first_order_scan": 2},
+                         phase="parallel")
+    rb = ChannelizedBank(acfg, N_PFB, device=DEV)
+    _against("ShardedChannelizedBank coherent AM c1=32 audio of the AM carriers vs "
+             "ChannelizedBank, 3 blocks", torch.cat([rb(b) for b in wire["c64"]], 1)
+             .index_select(0, am), torch.cat(outs, 1).index_select(0, am), 100.0)
+
+
+def parallel_scanner():
+    """ShardedScanner on a (1, 1) mesh, config 5's one-chip core as
+    bench.py:541-547 runs it (ChannelizedBankConfig(), blocks of 1024 x
+    16384): FM in c64 and u8 and coherent AM, the carriers' audio against
+    the single-card ChannelizedBank (>= 100 dB)."""
+    import torch
+    from tpudsp_torch.chains import ChannelizedBank, ChannelizedBankConfig
+    from tpudsp_torch.parallel import ShardedScanner, make_mesh
+    mesh = make_mesh(1, 1, DEV)
+    wire = {k: _split(v, N_PFB) for k, v in wire_of(pfb_signal(3, seed=43)).items()}
+    cases = (("FM c64", ChannelizedBankConfig(), "c64", PFB_FM,
+              {"pfb_branch": 1, "first_order_scan": 1}),
+             ("FM u8", ChannelizedBankConfig(), "u8", PFB_FM,
+              {"pfb_branch": 1, "first_order_scan": 1}),
+             ("coherent AM c64", ChannelizedBankConfig(demod="am", am_coherent=True), "c64",
+              PFB_AM, {"pfb_branch": 1, "am_front_scan": 2, "first_order_scan": 2}))
+    for label, cfg, fmt, chans, per_block in cases:
+        sc = ShardedScanner(cfg, mesh, N_PFB, input_format=fmt, device=DEV)
+        outs, _ = _run_chain(f"ShardedScanner 1x1 {label}", sc, wire[fmt], per_block,
+                             phase="parallel")
+        rb = ChannelizedBank(cfg, N_PFB, input_format=fmt, device=DEV)
+        idx = torch.tensor(chans, device=DEV)
+        _against(f"ShardedScanner {label} audio of its carriers vs ChannelizedBank, 3 blocks",
+                 torch.cat([rb(b) for b in wire[fmt]], 1).index_select(0, idx),
+                 torch.cat(outs, 1).index_select(0, idx), 100.0)
+        if label == "FM c64":
+            _parallel_times("ShardedScanner config 5 core FM c64", sc, wire[fmt] * 2,
+                            {"ChannelizedBank config 4 FM c64": rb})
+
+
+def parallel_pipeline():
+    """PipelinedAMReceiver with both stages on the one card, each on its own
+    stream: AMConfig() on four 4M-sample blocks and the flush in c64 / i16
+    / u8, bit for bit against AMReceiver(backend='xla') on the same blocks;
+    its launches: the back end's on every call but the fill call."""
+    import torch
+    from tpudsp_torch.chains.am import AMConfig, AMReceiver
+    from tpudsp_torch.parallel import PipelinedAMReceiver
+    cfg = AMConfig()
+    data = wire_blocks(N_PIPE, BLOCK_4M, seed=44)
+    stages = (DEV + ":0", DEV + ":0")
+    per_block = AM_OPTIONS["xla"][1]
+    for fmt in ("c64", "i16", "u8"):
+        blocks = [torch.from_numpy(b).to(DEV) for b in data[fmt]]
+        pp = PipelinedAMReceiver(cfg, BLOCK_4M, mesh=stages, input_format=fmt)
+        torch.cuda.synchronize()
+        zero_counts()                                  # the path starts
+        outs = [pp(b) for b in blocks]
+        outs.append(pp.flush())
+        torch.cuda.synchronize()
+        expect_counts(f"parallel PipelinedAMReceiver {fmt}", read_counts(),   # ... and ends
+                      {k: N_PIPE * v for k, v in per_block.items()})
+        if outs[0] is not None:
+            raise AssertionError("parallel: the pipeline's fill call returned pcm")
+        rx = AMReceiver(cfg, BLOCK_4M, fmt, backend="xla", device=DEV)
+        _against(f"PipelinedAMReceiver {fmt} ({N_PIPE} blocks and the flush) vs "
+                 "AMReceiver(backend='xla')", torch.cat([rx(b) for b in blocks]),
+                 torch.cat(outs[1:]), float("inf"))
+        if fmt == "c64":
+            pp(blocks[0])     # the fill call: every timed call is a whole stage pair
+            _parallel_times("PipelinedAMReceiver c64 (two streams on one card)", pp,
+                            blocks + blocks[:2], {"AMReceiver(backend='xla') c64": rx})
+
+
+class _FailsOnce:
+    """AMReceiver whose call on block ``fail_at`` raises, once: a lost card
+    or transport in the elastic runner's path."""
+    calls = 0
+
+    def __init__(self, fail_at: int):
+        from tpudsp_torch.chains.am import AMConfig, AMReceiver
+        self.rx = AMReceiver(AMConfig(), BLOCK_4M, device=DEV)
+        self.fail_at = fail_at
+
+    @property
+    def state(self):
+        return self.rx.state
+
+    @state.setter
+    def state(self, s):
+        self.rx.state = s
+
+    def __call__(self, block):
+        _FailsOnce.calls += 1
+        if _FailsOnce.calls == self.fail_at + 1:
+            raise RuntimeError("the card went away")
+        return self.rx(block)
+
+
+def parallel_elastic(scratch: Path):
+    """ElasticRunner over AMReceiver on 4M-sample blocks, snapshot_every=2,
+    the chain raising once at block 3: after the restore and the replay
+    from the snapshot of block 2 the pcm equals an uninterrupted run bit
+    for bit."""
+    import torch
+    from tpudsp_torch.chains.am import AMConfig, AMReceiver
+    from tpudsp_torch.parallel import ElasticRunner
+    blocks = [torch.from_numpy(b).to(DEV) for b in wire_blocks(5, BLOCK_4M, seed=45)["c64"]]
+    rx = AMReceiver(AMConfig(), BLOCK_4M, device=DEV)
+    truth = torch.cat([rx(b) for b in blocks])
+    _FailsOnce.calls = 0
+    runner = ElasticRunner(lambda: _FailsOnce(fail_at=3), str(scratch / "am"), snapshot_every=2)
+    out, i, resumed = [], 0, []
+    while i < len(blocks):
+        try:
+            out.append(runner(blocks[i]))
+            i += 1
+        except RuntimeError:
+            resumed.append((i, runner.block_index))
+            i = runner.block_index
+            out = out[:i]
+    log(f"parallel: ElasticRunner: failed at and resumed from blocks {resumed}, replayed to "
+        f"block {len(blocks)}")
+    if resumed != [(3, 2)]:
+        raise AssertionError(f"parallel: ElasticRunner: failed at and resumed from {resumed}, "
+                             "not [(3, 2)]")
+    _against("ElasticRunner(AMReceiver) resumed and replayed vs an uninterrupted run",
+             truth, torch.cat(out), float("inf"))
+
+
+def phase_parallel():
+    """The rest of the sharded runtime on the card through its entry points
+    (one-rank meshes and both pipeline stages on one card): ShardedBank,
+    ShardedChannelizer and ShardedChannelizedBank, ShardedScanner,
+    PipelinedAMReceiver, ElasticRunner; each against its single-card chain,
+    its launches counted, its block time beside the chain's."""
+    import tempfile
+    parallel_bank()
+    parallel_channelizer()
+    parallel_scanner()
+    parallel_pipeline()
+    with tempfile.TemporaryDirectory() as d:
+        parallel_elastic(Path(d))
+    log(f"timing: parallel: {json.dumps(results.get('parallel', {}))}")
+
+
+# --------------------------------------------------------------------------
 # stream: the io runtime driving the ported chains from raw radio bytes
 N_STREAM_AM = 4             # blocks of each AM runtime cell (a fifth: the checkpoint's next)
 N_STREAM_BANK = 3
@@ -3248,7 +3554,7 @@ PHASES = [("build", phase_build), ("kernel", phase_kernel), ("chain", phase_chai
           ("width", phase_width), ("sharded", phase_sharded), ("compat", phase_compat),
           ("options", phase_options), ("surface", phase_surface),
           ("receivers", phase_receivers), ("channelizer", phase_channelizer),
-          ("stream", phase_stream), ("timing", phase_timing)]
+          ("parallel", phase_parallel), ("stream", phase_stream), ("timing", phase_timing)]
 
 KERNELS = [
     ("am_front_scan", "tpudsp_torch/csrc/am_front_scan.cu",

@@ -33,7 +33,9 @@ inline Chain make_chain(int* scratch, int base, int epoch) {
                reinterpret_cast<float*>(scratch + 4)};
 }
 
+constexpr int MAX_DEVICES = 64;
+
 template <typename Kernel>
-cudaError_t allow_smem(Kernel, size_t) { return cudaSuccess; }
+cudaError_t allow_smem(Kernel, size_t, bool (&)[MAX_DEVICES]) { return cudaSuccess; }
 
 }  // namespace tile_chain

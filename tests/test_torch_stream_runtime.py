@@ -1,6 +1,7 @@
 """The port's StreamRuntime (tpudsp_torch.io.stream) on the CPU: mirrors of
-tests/test_stream_runtime.py (all but its ShardedScanner test, whose
-sharded scanner is not ported) at its BLOCK = 12_500. The runtime must
+tests/test_stream_runtime.py at its BLOCK = 12_500 (all but its
+ShardedScanner test, which runs on a four-rank gloo ring with the
+scanner's other cases in tests/test_torch_scanner.py). The runtime must
 reproduce the port's serial chain calls bit for bit (push order ==
 processing order == state evolution), stay >= 80 dB from the JAX
 package's StreamRuntime(AMReceiver(backend='pallas')) on the same bytes

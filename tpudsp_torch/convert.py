@@ -8,7 +8,11 @@ mid-flight; ``sharded_am_from_jax`` does it for a JAX
 ``stereo_from_jax`` and ``ssb_from_jax`` for a ``ReceiverBank``, a
 ``WBFMStereoReceiver`` and an ``SSBReceiver``; ``channelizer_from_jax``
 and ``channelized_bank_from_jax`` for a ``Channelizer`` and a
-``ChannelizedBank``. ``op_state_from_jax`` does
+``ChannelizedBank``; ``sharded_bank_from_jax``, ``tp_channelizer_from_jax``,
+``tp_bank_from_jax``, ``scanner_from_jax`` and ``pipeline_from_jax`` for
+the sharded runtimes, each JAX global array cut to this rank's slice
+(they load the sharded runtime, ``tpudsp_torch.parallel``, when called).
+``op_state_from_jax`` does
 the same for an op of the
 reference class surface: it turns a ``tpudsp.compat`` op's ``.state`` (a
 host numpy pytree) into the state of its ``tpudsp_torch.compat`` twin,
@@ -64,13 +68,18 @@ def op_state_from_jax(state, device="cuda"):
     return _t(state, device)
 
 
+def _am_params_from_jax(params, device):
+    t = lambda v: _t(v, device)
+    agc = AgcParams(*(t(getattr(params.agc, f)) for f in AgcParams._fields))
+    return AMParams(*(agc if f == "agc" else t(getattr(params, f))
+                      for f in AMParams._fields))
+
+
 def from_jax(params, state, device="cuda"):
     """JAX ``AMParams``, ``AMState`` -> the port's (AMParams, AMState) on
     ``device``, leaf for leaf with dtypes kept."""
     t = lambda v: _t(v, device)
-    agc = AgcParams(*(t(getattr(params.agc, f)) for f in AgcParams._fields))
-    new_params = AMParams(*(agc if f == "agc" else t(getattr(params, f))
-                            for f in AMParams._fields))
+    new_params = _am_params_from_jax(params, device)
     new_state = AMState(
         fir_tail=t(state.fir_tail),
         rs_tail=t(state.rs_tail),
@@ -159,3 +168,80 @@ def channelized_bank_from_jax(params, state, device="cuda"):
     return ((Ht, _t(b0, device), _t(a, device), _amb_from_jax(amb, device),
              _t(fm_mask, device)),
             _named(DemodBankState, state, device, ch=ch))
+
+
+def sharded_bank_from_jax(params, state, mesh, device="cuda"):
+    """A JAX ``ShardedBank``'s ``params`` and ``state`` (global arrays) ->
+    this rank's (BankParams, BankState) of the port's ``ShardedBank`` on
+    ``mesh``: ``bank_from_jax``, then the per-channel leaves cut to the
+    rank's ``channel`` slice (``parallel/bank.channel_slice``)."""
+    from .parallel.bank import channel_slice
+    return channel_slice(*bank_from_jax(params, state, device), mesh)
+
+
+def _axis_slice(mesh, axis_name):
+    """(this rank's index along ``axis_name``, the axis's size)."""
+    from .parallel.mesh import axis_size
+    return mesh.get_local_rank(axis_name), axis_size(mesh, axis_name)
+
+
+def tp_channelizer_from_jax(Ht, tw, tail, mesh, axis_name: str, device="cuda"):
+    """A JAX ``ShardedChannelizer``'s ``Ht``, ``tw`` (C1, C2) and ``tail``
+    -> the port's (Ht, this rank's (C1, C2/n) twiddle columns, tail) for
+    the rank's place on ``axis_name``."""
+    r, n = _axis_slice(mesh, axis_name)
+    tw = np.asarray(tw)
+    w = tw.shape[1] // n
+    return _t(Ht, device), _t(tw[:, r * w:(r + 1) * w], device), _t(tail, device)
+
+
+def tp_bank_from_jax(params, state, mesh, axis_name: str, device="cuda"):
+    """A JAX ``ShardedChannelizedBank``'s ``params`` (Ht, tw, b0, a, amb,
+    fm_mask) and ``TPBankState`` (layout-ordered (C1, C2) leaves) -> the
+    port's, each (C1, C2) leaf cut to this rank's rows of c1 and the
+    twiddle to its columns of p2."""
+    from .parallel.channelizer import TPBankState
+    Ht, tw, b0, a, amb, fm_mask = params
+    r, n = _axis_slice(mesh, axis_name)
+    rows = lambda v: None if v is None else np.asarray(v)[
+        r * (np.shape(v)[0] // n):(r + 1) * (np.shape(v)[0] // n)]
+    Ht, tw, tail = tp_channelizer_from_jax(Ht, tw, state.tail, mesh, axis_name, device)
+    cut = lambda tree: op_state_from_jax(_leaves_map(rows, tree), device)
+    return ((Ht, tw, _t(b0, device), _t(a, device), _amb_from_jax(amb, device),
+             _t(rows(fm_mask), device)),
+            TPBankState(tail=tail, fd_prev=_t(rows(state.fd_prev), device),
+                        deemph=_t(rows(state.deemph), device), front=cut(state.front),
+                        dc=_t(rows(state.dc), device)))
+
+
+def _leaves_map(fn, tree):
+    """fn over the array leaves of a JAX NamedTuple tree (None kept), the
+    NamedTuples kept as they are."""
+    if tree is None:
+        return None
+    if isinstance(tree, tuple):
+        vals = [_leaves_map(fn, v) for v in tree]
+        return type(tree)(*vals) if hasattr(tree, "_fields") else tuple(vals)
+    return fn(tree)
+
+
+def scanner_from_jax(params, state, device="cuda"):
+    """A JAX ``ShardedScanner``'s ``params`` and ``DemodBankState`` (held
+    whole on every rank) -> the port's, as ``channelized_bank_from_jax``."""
+    return channelized_bank_from_jax(params, state, device)
+
+
+def pipeline_from_jax(params, state, stages):
+    """A JAX ``PipelinedAMReceiver``'s ``params`` (AMParams) and
+    ``AMPipeState`` (stage-stacked leaves) -> the port's per-stage
+    AMParams and AMPipeState on the two stage devices: stage 0's front-end
+    tail, stage 1's AGC, AmpModem, de-emphasis and activation."""
+    from .parallel.pipeline import AMPipeState
+    d0, d1 = stages
+    stage1 = lambda tree: op_state_from_jax(
+        _leaves_map(lambda v: np.asarray(v)[1], tree), d1)
+    return (_am_params_from_jax(params, d0), _am_params_from_jax(params, d1)), AMPipeState(
+        rs_tail=_t(np.asarray(state.rs_tail)[0], d0),
+        agc=stage1(state.agc), am=stage1(state.am),
+        deemph=_t(np.asarray(state.deemph)[1], d1),
+        buf=_t(np.asarray(state.buf)[1], d1))

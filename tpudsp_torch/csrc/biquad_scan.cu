@@ -361,7 +361,8 @@ extern "C" int biquad_scan(const float* tab, const float* x, const float* v_prev
                            float* v_last, int* scratch, int sections, int rows, int n, int rs,
                            int cs, int base, int epoch, void* stream) {
   if (sections <= 0 || rows <= 0 || n <= 0) return 0;
-  static const cudaError_t set = allow_smem(biquad_scan_kernel, Smem::BYTES);
+  static bool smem_set[MAX_DEVICES];
+  const cudaError_t set = allow_smem(biquad_scan_kernel, Smem::BYTES, smem_set);
   if (set != cudaSuccess) return static_cast<int>(set);
   const int tiles = (n + TILE - 1) / TILE;
   biquad_scan_kernel<<<rows * tiles, THREADS, Smem::BYTES, static_cast<cudaStream_t>(stream)>>>(

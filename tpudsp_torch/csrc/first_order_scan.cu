@@ -532,7 +532,8 @@ extern "C" int first_order_scan(const float* tab, const float* x, const float* y
                                 float* y, float* y_last, int* scratch, int rows, int n, int rs,
                                 int cs, int base, int epoch, void* stream) {
   if (rows <= 0 || n <= 0) return 0;
-  static const cudaError_t set = allow_smem(first_order_scan_kernel, Smem<1>::BYTES);
+  static bool smem_set[MAX_DEVICES];
+  const cudaError_t set = allow_smem(first_order_scan_kernel, Smem<1>::BYTES, smem_set);
   if (set != cudaSuccess) return static_cast<int>(set);
   const int tiles = (n + TILE - 1) / TILE;
   first_order_scan_kernel<<<rows * tiles, THREADS, Smem<1>::BYTES,
@@ -546,7 +547,8 @@ extern "C" int linear_tail_scan(const float* tab_dc, const float* tab_de, const 
                                 float* pcm, float* dc_last, float* de_last, int* scratch,
                                 int rows, int n, int base, int epoch, void* stream) {
   if (rows <= 0 || n <= 0) return 0;
-  static const cudaError_t set = allow_smem(linear_tail_kernel, Smem<2>::BYTES);
+  static bool smem_set[MAX_DEVICES];
+  const cudaError_t set = allow_smem(linear_tail_kernel, Smem<2>::BYTES, smem_set);
   if (set != cudaSuccess) return static_cast<int>(set);
   const int tiles = (n + TILE - 1) / TILE;
   linear_tail_kernel<<<rows * tiles, THREADS, Smem<2>::BYTES,
@@ -561,7 +563,8 @@ extern "C" int linear_tail_scan(const float* tab_dc, const float* tab_de, const 
 extern "C" int first_order_scan_cols(const float* tab, const float* x, const float* y_prev,
                                      float* y, float* y_last, int C, int n, void* stream) {
   if (C <= 0 || n <= 0) return 0;
-  static const cudaError_t set = allow_smem(first_order_cols_kernel, COL_SMEM);
+  static bool smem_set[MAX_DEVICES];
+  const cudaError_t set = allow_smem(first_order_cols_kernel, COL_SMEM, smem_set);
   if (set != cudaSuccess) return static_cast<int>(set);
   first_order_cols_kernel<<<(C + CG - 1) / CG, CTHREADS, COL_SMEM,
                             static_cast<cudaStream_t>(stream)>>>(tab, x, y_prev, y, y_last, n,

@@ -119,10 +119,23 @@ __host__ inline Chain make_chain(int* scratch, int base, int epoch) {
                reinterpret_cast<float*>(scratch + 4)};
 }
 
+// The devices one entry point can tell apart in its record of them.
+constexpr int MAX_DEVICES = 64;
+
+// Lets `kernel` take `bytes` of dynamic shared memory. The attribute holds
+// on the device current at the call only, and one process may launch on
+// several (the pipeline's two stage cards), so each device is set the
+// first time the entry launches there; `done` is the entry's own record.
 template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
+cudaError_t allow_smem(Kernel kernel, size_t bytes, bool (&done)[MAX_DEVICES]) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < MAX_DEVICES && done[dev]) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(bytes));
+  if (e == cudaSuccess && dev < MAX_DEVICES) done[dev] = true;
+  return e;
 }
 
 }  // namespace tile_chain

@@ -34,7 +34,6 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
-import torch.distributed as dist
 from torch import nn
 
 from ..chains.am import AMConfig, INPUT_FORMATS, _rational, build as am_build
@@ -47,7 +46,7 @@ from ..kernels import decimate as kdec
 from ..kernels import lanes
 from ..kernels.warmup import warmup_for
 from .bank import (_first_order_time_sharded_blocked, all_gather,
-                   coherent_am_time_sharded)
+                   broadcast_from_last, coherent_am_time_sharded)
 from .halo import left_halo, left_halo_rows
 from .mesh import TIME_AXIS, axis_size
 
@@ -95,24 +94,6 @@ def _sharded_am_step(taps, amb, state: SAMState, iq_loc, mesh, *, Q: int,
     new_state = SAMState(rs_tail=new_tail, front=lanes.first_stream(front),
                          dc=dc[0], deemph=deemph[0])
     return new_state, pcm[0]
-
-
-def _broadcast_from_last(state: SAMState, mesh) -> SAMState:
-    """The last time rank's state on every rank: its leaves' bytes, packed
-    into one tensor, in one broadcast."""
-    T = axis_size(mesh, TIME_AXIS)
-    if T == 1:
-        return state
-    leaves = []
-    lanes.tree_map(leaves.append, state)
-    packed = torch.cat([v.contiguous().reshape(-1).view(torch.uint8)
-                        for v in leaves])
-    group = mesh.get_group(TIME_AXIS)
-    dist.broadcast(packed, src=dist.get_global_rank(group, T - 1), group=group)
-    sizes = [v.numel() * v.element_size() for v in leaves]
-    parts = iter(p.clone().view(v.dtype).reshape(v.shape)
-                 for p, v in zip(packed.split(sizes), leaves))
-    return lanes.tree_map(lambda _: next(parts), state)
 
 
 class ShardedAMReceiver(nn.Module):
@@ -217,5 +198,5 @@ class ShardedAMReceiver(nn.Module):
         state, pcm = _sharded_am_step(self.taps, self._amb, self.state,
                                       iq_loc.contiguous(), self.mesh,
                                       **self._step_kw)
-        self.state = _broadcast_from_last(state, self.mesh)
+        self.state = broadcast_from_last(state, self.mesh)
         return all_gather(pcm, self.mesh).reshape(-1)
