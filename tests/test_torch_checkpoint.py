@@ -174,8 +174,9 @@ def test_none_is_a_node_without_a_leaf(tmp_path):
 
 
 def test_annotate_and_trace_on_the_cpu(tmp_path):
-    """annotate is a named span that shows in a trace (and a no-op outside
-    one); trace writes a Chrome trace into its directory."""
+    """annotate is a named span that shows in a trace, as a range of its own
+    around its work, and leaves nothing outside one; trace writes a Chrome
+    trace into its directory."""
     with annotate("outside.stage"):
         torch.ones(8).sum()
     logdir = tmp_path / "trace"
@@ -185,7 +186,11 @@ def test_annotate_and_trace_on_the_cpu(tmp_path):
     files = list(logdir.glob("*.json"))
     assert len(files) == 1
     events = json.loads(files[0].read_text())["traceEvents"]
-    assert any(e.get("name") == "chain.stage" for e in events)
+    names = [e.get("name") for e in events]
+    assert names.count("chain.stage") == 1 and "outside.stage" not in names
+    span = next(e for e in events if e.get("name") == "chain.stage")
+    op = next(e for e in events if e.get("name") == "aten::cumsum")
+    assert span["ts"] <= op["ts"] and op["ts"] + op["dur"] <= span["ts"] + span["dur"]
 
 
 def test_migration_from_a_tpudsp_snapshot(tmp_path):

@@ -58,6 +58,7 @@ from ..kernels import fir as kfir
 from ..kernels import lanes
 from ..kernels import resamp as krs
 from ..kernels import warmup as kwarm
+from ..utils.profiling import annotate
 from . import metrics as kmet
 from .metrics import BlockMetrics
 
@@ -266,13 +267,15 @@ def am_step_composed(params: AMParams, state: AMState, iq, *, cfg: AMConfig,
     """The reference-ordered chain: bandpass (overlap-save FIR) -> resample
     -> the back end. iq is (N,) complex64. Returns (state, (pcm,
     BlockMetrics))."""
-    fir_tail, bb = kfir.fir_apply(params.h_bp, state.fir_tail, iq)
-    ntaps = params.H_rs.shape[1]
-    _, y48 = krs.resamp_apply(params.H_rs, state.rs_tail[-ntaps:], bb, params.q,
-                              params.frac)
-    rs_tail = torch.cat([state.rs_tail, bb])[-state.rs_tail.shape[0]:]
-    agc_state, am_state, d_state, pcm, modes = _back_end(
-        params, state, y48, cfg, exact, backend)
+    with annotate("am_step.front"):
+        fir_tail, bb = kfir.fir_apply(params.h_bp, state.fir_tail, iq)
+        ntaps = params.H_rs.shape[1]
+        _, y48 = krs.resamp_apply(params.H_rs, state.rs_tail[-ntaps:], bb, params.q,
+                                  params.frac)
+        rs_tail = torch.cat([state.rs_tail, bb])[-state.rs_tail.shape[0]:]
+    with annotate("am_step.back"):
+        agc_state, am_state, d_state, pcm, modes = _back_end(
+            params, state, y48, cfg, exact, backend)
     new_state = AMState(fir_tail, rs_tail, agc_state, am_state, d_state)
     return new_state, (pcm, _metrics(agc_state, am_state, modes, pcm.device))
 
@@ -283,19 +286,21 @@ def am_step_fused(params: AMParams, state: AMState, iq, *, cfg: AMConfig,
     points, one strided matmul) and the fused back end. iq is (N,)
     complex64, or (N, 2) raw int16 / uint8 when built for 'i16' / 'u8'.
     Returns (state, (pcm, BlockMetrics))."""
-    P, Q = _rational(cfg.rate)
-    nj = params.q.shape[0] // P
-    if state.rs_tail.dtype == torch.uint8:
-        rs_tail, y48 = kdec.fused_frontend_apply_shared_u8(
-            params.taps_fused, params.u8_dc, state.rs_tail, iq, Q, nj)
-    elif state.rs_tail.dtype == torch.int16:
-        rs_tail, y48 = kdec.fused_frontend_apply_shared_i16(
-            params.taps_fused, state.rs_tail, iq, Q, nj)
-    else:
-        rs_tail, y48 = kdec.fused_frontend_apply_shared(
-            params.taps_fused, state.rs_tail, iq, Q, nj)
-    agc_state, am_state, d_state, pcm, modes = _back_end(
-        params, state, y48, cfg, exact, backend)
+    with annotate("am_step.front"):
+        P, Q = _rational(cfg.rate)
+        nj = params.q.shape[0] // P
+        if state.rs_tail.dtype == torch.uint8:
+            rs_tail, y48 = kdec.fused_frontend_apply_shared_u8(
+                params.taps_fused, params.u8_dc, state.rs_tail, iq, Q, nj)
+        elif state.rs_tail.dtype == torch.int16:
+            rs_tail, y48 = kdec.fused_frontend_apply_shared_i16(
+                params.taps_fused, state.rs_tail, iq, Q, nj)
+        else:
+            rs_tail, y48 = kdec.fused_frontend_apply_shared(
+                params.taps_fused, state.rs_tail, iq, Q, nj)
+    with annotate("am_step.back"):
+        agc_state, am_state, d_state, pcm, modes = _back_end(
+            params, state, y48, cfg, exact, backend)
     new_state = AMState(state.fir_tail, rs_tail, agc_state, am_state, d_state)
     return new_state, (pcm, _metrics(agc_state, am_state, modes, pcm.device))
 
@@ -366,23 +371,24 @@ class AMReceiver(nn.Module):
         return self.taps_fused.device
 
     def forward(self, iq):
-        iq = torch.as_tensor(iq, device=self.device)
-        if self.input_format in ("i16", "u8"):
-            want = torch.int16 if self.input_format == "i16" else torch.uint8
-            if iq.dtype != want or iq.ndim != 2 or iq.shape[1] != 2:
-                raise TypeError(
-                    f"input_format={self.input_format!r} expects (N, 2) "
-                    f"{want} [re, im]; got {iq.dtype} {tuple(iq.shape)}")
-        else:
-            iq = iq.to(torch.complex64)
-            if iq.ndim != 1:
-                raise TypeError(f"input_format='c64' expects (N,) complex; "
-                                f"got shape {tuple(iq.shape)}")
-        if iq.shape[0] != self.block_len:
-            raise ValueError(f"expected block of {self.block_len} samples")
-        step = am_step_fused if self.plan == "fused" else am_step_composed
-        self.state, (pcm, metrics) = step(self.params, self.state, iq.contiguous(),
-                                          cfg=self.cfg, exact=self.exact,
-                                          backend=self.backend)
-        self.metrics = metrics
-        return pcm
+        with annotate("AMReceiver.step"):
+            iq = torch.as_tensor(iq, device=self.device)
+            if self.input_format in ("i16", "u8"):
+                want = torch.int16 if self.input_format == "i16" else torch.uint8
+                if iq.dtype != want or iq.ndim != 2 or iq.shape[1] != 2:
+                    raise TypeError(
+                        f"input_format={self.input_format!r} expects (N, 2) "
+                        f"{want} [re, im]; got {iq.dtype} {tuple(iq.shape)}")
+            else:
+                iq = iq.to(torch.complex64)
+                if iq.ndim != 1:
+                    raise TypeError(f"input_format='c64' expects (N,) complex; "
+                                    f"got shape {tuple(iq.shape)}")
+            if iq.shape[0] != self.block_len:
+                raise ValueError(f"expected block of {self.block_len} samples")
+            step = am_step_fused if self.plan == "fused" else am_step_composed
+            self.state, (pcm, metrics) = step(self.params, self.state, iq.contiguous(),
+                                              cfg=self.cfg, exact=self.exact,
+                                              backend=self.backend)
+            self.metrics = metrics
+            return pcm

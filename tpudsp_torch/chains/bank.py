@@ -47,6 +47,7 @@ from ..kernels import f32_matmul
 from ..kernels import warmup as kwarm
 from ..kernels.fastmath import patan2
 from ..kernels.pll import PllState
+from ..utils.profiling import annotate
 from . import metrics as kmet
 from .am import INPUT_FORMATS, _check_back_end
 from .metrics import BlockMetrics
@@ -406,7 +407,7 @@ class ReceiverBank:
 
     def __call__(self, iq):
         iq = check_input(iq, self.input_format, self.device)
-        with torch.profiler.record_function("ReceiverBank.step"):
+        with annotate("ReceiverBank.step"):
             self.state, (audio, metrics) = bank_step(
                 self.params, self.state, iq, cfg=self.cfg, backend=self.backend)
         self.metrics = metrics

@@ -48,6 +48,7 @@ from ..kernels import pfb as kpfb
 from ..kernels import warmup as kwarm
 from ..kernels.fastmath import patan2
 from ..kernels.pll import PllState
+from ..utils.profiling import annotate
 from . import metrics as kmet
 from .am import INPUT_FORMATS, _check_back_end
 from .bank import KERNEL_CHUNK, _fm_base, _index_tensor, check_input
@@ -305,24 +306,29 @@ def bank_step(params, state: DemodBankState, x, *, cfg: ChannelizedBankConfig,
     warmup fits its cap, 'xla' with its XLA chunk (warmup.chunk_for)."""
     backend = _check_back_end(False, backend)
     Ht, _, _, amb, fm_mask = params
-    ch_state, Y = _channelize(Ht, state.ch, x, cfg.channelizer.oversample,
-                              cfg.channelizer.engine)   # (M, C)
-    b0_de, a_de = iirdes.deemphasis_coeffs(cfg.channelizer.chan_rate, cfg.deemph_tau)
+    with annotate("bank_step.channelize"):
+        ch_state, Y = _channelize(Ht, state.ch, x, cfg.channelizer.oversample,
+                                  cfg.channelizer.engine)   # (M, C)
     mixed = _is_mixed(cfg)
     if not mixed and _demod_tuple(cfg)[0] == "fm":
         # the uniform-FM bank on the channelizer's (M, C) layout: the
         # discriminator down the columns, then the de-emphasis down the
         # columns, which transposes the f32 audio into its (C, M) rows
-        prev = torch.cat([state.fd_prev[None, :], Y[:-1]], 0)
-        d = Y * torch.conj(prev)
-        base_mc = patan2(d.imag, d.real) / float(np.float32(TWO_PI * cfg.kd))
-        deemph, audio_mc = first_order.first_order_apply_blocked_mc(
-            b0_de, a_de, state.deemph, base_mc)
+        with annotate("bank_step.demod"):
+            b0_de, a_de = iirdes.deemphasis_coeffs(cfg.channelizer.chan_rate,
+                                                   cfg.deemph_tau)
+            prev = torch.cat([state.fd_prev[None, :], Y[:-1]], 0)
+            d = Y * torch.conj(prev)
+            base_mc = patan2(d.imag, d.real) / float(np.float32(TWO_PI * cfg.kd))
+            deemph, audio_mc = first_order.first_order_apply_blocked_mc(
+                b0_de, a_de, state.deemph, base_mc)
         metrics = BlockMetrics(rssi=None, squelch_modes=None, pll_freq=None,
                                resamp_credit=None)
+        audio = audio_mc.T.contiguous()
         return (DemodBankState(ch_state, Y[-1].clone(), deemph, state.front, state.dc),
-                (audio_mc.T.contiguous(), metrics))
+                (audio, metrics))
     Yc = Y.T.contiguous()                          # (C, M)
+    fd_prev = Yc[:, -1].clone()
     front, dc = state.front, state.dc
     sq_modes = None
     am_idx = _am_indices(cfg)
@@ -336,21 +342,23 @@ def bank_step(params, state: DemodBankState, x, *, cfg: ChannelizedBankConfig,
             1.0 - kam.DC_RHO, kam.DC_RHO, dc0, vr)
         return fr, dc2, (vr - dct) * amb.inv_mod, modes
 
-    if not mixed and cfg.am_coherent:
-        front, dc, base, sq_modes = coherent(Yc, state.front, state.dc)
-    elif not mixed:
-        base = torch.abs(Yc)
-    else:
-        base = torch.where(fm_mask[:, None], _fm_base(Yc, state.fd_prev, cfg.kd),
-                           torch.abs(Yc))
-        if cfg.am_coherent and am_idx:
-            idx = _index_tensor(am_idx, Yc.device)
-            front, dc, coh, sq_modes = coherent(Yc.index_select(0, idx), state.front,
-                                                state.dc)
-            base = base.index_copy(0, idx, coh)
-    fd_prev = Yc[:, -1].clone()
-    # the de-emphasis over the C rows: one launch
-    deemph, audio = first_order.first_order_apply_blocked(b0_de, a_de, state.deemph, base)
+    with annotate("bank_step.demod"):
+        b0_de, a_de = iirdes.deemphasis_coeffs(cfg.channelizer.chan_rate, cfg.deemph_tau)
+        if not mixed and cfg.am_coherent:
+            front, dc, base, sq_modes = coherent(Yc, state.front, state.dc)
+        elif not mixed:
+            base = torch.abs(Yc)
+        else:
+            base = torch.where(fm_mask[:, None], _fm_base(Yc, state.fd_prev, cfg.kd),
+                               torch.abs(Yc))
+            if cfg.am_coherent and am_idx:
+                idx = _index_tensor(am_idx, Yc.device)
+                front, dc, coh, sq_modes = coherent(Yc.index_select(0, idx), state.front,
+                                                    state.dc)
+                base = base.index_copy(0, idx, coh)
+        # the de-emphasis over the C rows: one launch
+        deemph, audio = first_order.first_order_apply_blocked(b0_de, a_de, state.deemph,
+                                                              base)
     metrics = BlockMetrics(
         rssi=None if front is None else kmet.rssi_db(front.agc.g),
         squelch_modes=sq_modes,
@@ -383,9 +391,9 @@ class ChannelizedBank:
         return self.params[0].device
 
     def __call__(self, iq):
-        iq = check_input(iq, self.input_format, self.device)
-        with torch.profiler.record_function("ChannelizedBank.step"):
+        with annotate("ChannelizedBank.step"):
+            iq = check_input(iq, self.input_format, self.device)
             self.state, (audio, metrics) = bank_step(
                 self.params, self.state, iq, cfg=self.cfg, backend=self.backend)
-        self.metrics = metrics
-        return audio
+            self.metrics = metrics
+            return audio

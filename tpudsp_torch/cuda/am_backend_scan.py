@@ -74,10 +74,12 @@ def _launch(p: AmBackendParams, st: FrontState, xre, xim, nchunks: int,
     launch.launch(KERNEL, dev, scal, xre, xim, *init, vr, modes, *fin,
                   lanes_, nchunks, chunk, warmup)
     _launch.launches += 1
+    _launch.steps += chunk + warmup
     return vr, modes, FrontState(AgcState(*fin[:4]), PllState(*fin[4:]))
 
 
 _launch.launches = 0
+_launch.steps = 0       # dependent steps a lane, summed over the launches
 
 
 def front_exact(p: AmBackendParams, st: FrontState, x):

@@ -39,6 +39,7 @@ from ..kernels import iir as kiir
 from ..kernels import lanes
 from ..kernels.ampmodem import DC_RHO, PLL_BW
 from ..kernels.warmup import chunk_for, warmup_for
+from ..utils.profiling import annotate
 from .halo import left_halo, left_halo_rows
 from .mesh import CHANNEL_AXIS, TIME_AXIS, axis_size
 
@@ -357,7 +358,7 @@ class ShardedBank:
         t = self.mesh.get_local_rank(TIME_AXIS)
         iq_loc = cbank.check_input(iq[t * self.n_loc:(t + 1) * self.n_loc],
                                    self.input_format, self.device)
-        with torch.profiler.record_function("ShardedBank.step"):
+        with annotate("ShardedBank.step"):
             state, audio = sharded_bank_step(self.params, self.state, iq_loc, self.mesh,
                                              **self._step_kw)
             self.state = broadcast_from_last(state, self.mesh)

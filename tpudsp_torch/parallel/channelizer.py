@@ -56,6 +56,7 @@ from ..kernels import lanes
 from ..kernels import warmup as kwarm
 from ..kernels.fastmath import patan2
 from ..kernels.pll import PllState
+from ..utils.profiling import annotate
 from .bank import all_gather
 from .halo import left_halo_rows
 from .mesh import axis_size
@@ -379,6 +380,6 @@ class ShardedChannelizedBank:
         return audio
 
     def __call__(self, iq):
-        with torch.profiler.record_function("ShardedChannelizedBank.step"):
+        with annotate("ShardedChannelizedBank.step"):
             a = all_gather(self.step(iq), self.mesh, self.axis_name)   # (n, C1/n, C2, M)
         return a.reshape(self.C1 * self.C2, -1).index_select(0, self._sc._inv)

@@ -31,6 +31,7 @@ from ..chains.channelizer import ChannelizedBankConfig, ChannelizerState, DemodB
 from ..design import iirdes
 from ..kernels import ampmodem as kam
 from ..kernels.warmup import warmup_for
+from ..utils.profiling import annotate
 from .bank import (_first_order_time_sharded_blocked, all_gather, broadcast_from_last,
                    coherent_am_time_sharded)
 from .halo import left_halo, left_halo_rows
@@ -175,7 +176,7 @@ class ShardedScanner:
         t = self.mesh.get_local_rank(TIME_AXIS)
         x = check_input(iq[t * self.n_loc:(t + 1) * self.n_loc], self.input_format,
                         self.device)
-        with torch.profiler.record_function("ShardedScanner.step"):
+        with annotate("ShardedScanner.step"):
             state, audio = scanner_step(self.params, self.state, x, self.mesh, cfg=self.cfg)
             self.state = broadcast_from_last(state, self.mesh)
             audio = all_gather(audio, self.mesh)              # (T, C, M_loc)

@@ -38,6 +38,7 @@ from ..chains.am import (AMConfig, AMParams, AMState, INPUT_FORMATS, _back_end,
                          _check_back_end, _rational, build)
 from ..kernels import decimate as kdec
 from ..kernels import lanes
+from ..utils.profiling import annotate
 
 N_STAGES = 2
 
@@ -213,7 +214,7 @@ class PipelinedAMReceiver:
 
     def __call__(self, iq):
         iq = self._input(iq)
-        with torch.profiler.record_function("PipelinedAMReceiver.step"):
+        with annotate("PipelinedAMReceiver.step"):
             pcm = self._step(iq, self._fed >= 1)
         self._fed += 1
         return pcm if self._fed >= 2 else None   # the fill bubble
