@@ -24,7 +24,9 @@ launch over the Ca streams, their DC tracker one first_order_scan launch
 of Ca rows.
 
 ``bank_step`` only enqueues device work: it reads no value of a device
-tensor on the host.
+tensor on the host. Its two stages are the spans ``bank_step.channelize``
+(the front end and the rotation) and ``bank_step.demod`` (the back end,
+the audio decimation and the de-emphasis), the channelized bank's names.
 """
 
 from __future__ import annotations
@@ -297,70 +299,72 @@ def bank_step(params: BankParams, state: BankState, iq, *, cfg: BankConfig,
     K1, K2 = cfg.taps1, cfg.taps2
     n = iq.shape[0]
 
-    # batched mix + channelize -> (C, N/D1) complex, then the output
-    # rotation e^{-j w_c (n0 + m D1)} from the uint32 phase lattice
-    nj1 = n // D1
-    y1m = halo_async.cfir(iq, state.in_tail, params.taps_re, params.taps_im, D1, nj1)
-    theta = phase_lattice(state.phase, state.n0, params.dtheta, D1, nj1)
-    y1 = y1m * torch.polar(torch.ones_like(theta), -theta)
+    with annotate("bank_step.channelize"):
+        # batched mix + channelize -> (C, N/D1) complex, then the output
+        # rotation e^{-j w_c (n0 + m D1)} from the uint32 phase lattice
+        nj1 = n // D1
+        y1m = halo_async.cfir(iq, state.in_tail, params.taps_re, params.taps_im, D1, nj1)
+        theta = phase_lattice(state.phase, state.n0, params.dtheta, D1, nj1)
+        y1 = y1m * torch.polar(torch.ones_like(theta), -theta)
 
-    demods = _demod_tuple(cfg)
-    ssb_any = any(d in ("usb", "lsb") for d in demods)
-    all_ssb = all(d in ("usb", "lsb") for d in demods)
-    if cfg.demod == "fm":
-        base = _fm_base(y1, state.fd_prev, cfg.kd)
-    elif cfg.demod == "am":
-        base = torch.abs(y1)
-    elif isinstance(cfg.demod, str) and ssb_any:
-        # the real demod runs below through the one-sided decimator; this
-        # base only keeps the (unused) a_tail carry
-        base = y1.real
-    else:  # mixed bank: every demod computed, selected per channel
-        base = torch.where(params.fm_mask[:, None],
-                           _fm_base(y1, state.fd_prev, cfg.kd),
-                           torch.where(params.ssb_mask[:, None], y1.real, torch.abs(y1)))
-    fd_prev = y1[:, -1].clone()
+    with annotate("bank_step.demod"):
+        demods = _demod_tuple(cfg)
+        ssb_any = any(d in ("usb", "lsb") for d in demods)
+        all_ssb = all(d in ("usb", "lsb") for d in demods)
+        if cfg.demod == "fm":
+            base = _fm_base(y1, state.fd_prev, cfg.kd)
+        elif cfg.demod == "am":
+            base = torch.abs(y1)
+        elif isinstance(cfg.demod, str) and ssb_any:
+            # the real demod runs below through the one-sided decimator; this
+            # base only keeps the (unused) a_tail carry
+            base = y1.real
+        else:  # mixed bank: every demod computed, selected per channel
+            base = torch.where(params.fm_mask[:, None],
+                               _fm_base(y1, state.fd_prev, cfg.kd),
+                               torch.where(params.ssb_mask[:, None], y1.real, torch.abs(y1)))
+        fd_prev = y1[:, -1].clone()
 
-    am_idx = _am_indices(cfg)
-    front, dc = state.front, state.dc
-    sq_modes = None
-    if cfg.am_coherent and am_idx:
-        # coherent AM channels: AGC + carrier PLL over the Ca streams in one
-        # launch, the DC tracker over their rows in another, at the channel
-        # rate, in place of the envelope rows of base
-        idx = _index_tensor(am_idx, y1.device)
-        y_am = y1.index_select(0, idx)
-        w = kwarm.warmup_for(
-            agc_alpha=cfg.agc_bandwidth, pll_bw=kam.PLL_BW,
-            squelch_timeout=cfg.squelch_timeout if cfg.squelch else 0)
-        chunk = KERNEL_CHUNK if backend == "kernel" else kwarm.chunk_for(w)
-        front, (vr, sq_modes) = front_chunked(params.amb, state.front, y_am, chunk, w)
-        dc, dct = first_order.first_order_apply_blocked(
-            1.0 - kam.DC_RHO, kam.DC_RHO, state.dc, vr)
-        coh = (vr - dct) * params.amb.inv_mod
-        base = coh if len(am_idx) == C else base.index_copy(0, idx, coh)
+        am_idx = _am_indices(cfg)
+        front, dc = state.front, state.dc
+        sq_modes = None
+        if cfg.am_coherent and am_idx:
+            # coherent AM channels: AGC + carrier PLL over the Ca streams in one
+            # launch, the DC tracker over their rows in another, at the channel
+            # rate, in place of the envelope rows of base
+            idx = _index_tensor(am_idx, y1.device)
+            y_am = y1.index_select(0, idx)
+            w = kwarm.warmup_for(
+                agc_alpha=cfg.agc_bandwidth, pll_bw=kam.PLL_BW,
+                squelch_timeout=cfg.squelch_timeout if cfg.squelch else 0)
+            chunk = KERNEL_CHUNK if backend == "kernel" else kwarm.chunk_for(w)
+            front, (vr, sq_modes) = front_chunked(params.amb, state.front, y_am, chunk, w)
+            dc, dct = first_order.first_order_apply_blocked(
+                1.0 - kam.DC_RHO, kam.DC_RHO, state.dc, vr)
+            coh = (vr - dct) * params.amb.inv_mod
+            base = coh if len(am_idx) == C else base.index_copy(0, idx, coh)
 
-    # audio decimation: per-channel blocked product with shared taps
-    nj2 = nj1 // D2
-    A = torch.cat([state.a_tail, base], 1)   # (C, K2-1+N/D1)
-    audio = _audio_decimate(A, params.h2, D2, nj2)
+        # audio decimation: per-channel blocked product with shared taps
+        nj2 = nj1 // D2
+        A = torch.cat([state.a_tail, base], 1)   # (C, K2-1+N/D1)
+        audio = _audio_decimate(A, params.h2, D2, nj2)
 
-    # SSB channels: the complex baseband through the one-sided taps, Re
-    # taken; lsb channels conjugate it (lsb_sign flips Im)
-    y1_tail = state.y1_tail
-    if ssb_any:
-        K2s = cfg.taps2_ssb
-        Yf = torch.cat([state.y1_tail, y1], 1)   # (C, K2s-1+N/D1)
-        yi = Yf.imag * params.lsb_sign[:, None]
-        audio_ssb = (_audio_decimate(Yf.real, params.h2s_re, D2, nj2)
-                     - _audio_decimate(yi, params.h2s_im, D2, nj2))
-        audio = audio_ssb if all_ssb else torch.where(
-            params.ssb_mask[:, None], audio_ssb, audio)
-        y1_tail = Yf[:, -(K2s - 1):]
+        # SSB channels: the complex baseband through the one-sided taps, Re
+        # taken; lsb channels conjugate it (lsb_sign flips Im)
+        y1_tail = state.y1_tail
+        if ssb_any:
+            K2s = cfg.taps2_ssb
+            Yf = torch.cat([state.y1_tail, y1], 1)   # (C, K2s-1+N/D1)
+            yi = Yf.imag * params.lsb_sign[:, None]
+            audio_ssb = (_audio_decimate(Yf.real, params.h2s_re, D2, nj2)
+                         - _audio_decimate(yi, params.h2s_im, D2, nj2))
+            audio = audio_ssb if all_ssb else torch.where(
+                params.ssb_mask[:, None], audio_ssb, audio)
+            y1_tail = Yf[:, -(K2s - 1):]
 
-    # de-emphasis over the C rows: one blocked scan (float64 design values)
-    b0_de, a_de = iirdes.deemphasis_coeffs(cfg.audio_rate)
-    deemph, audio = first_order.first_order_apply_blocked(b0_de, a_de, state.deemph, audio)
+        # de-emphasis over the C rows: one blocked scan (float64 design values)
+        b0_de, a_de = iirdes.deemphasis_coeffs(cfg.audio_rate)
+        deemph, audio = first_order.first_order_apply_blocked(b0_de, a_de, state.deemph, audio)
 
     new_state = BankState(
         in_tail=torch.cat([state.in_tail, iq[-(K1 - 1):]])[-(K1 - 1):],
