@@ -77,9 +77,15 @@ fails:
                 does not divide) and at the bank shape (16 channels of 128
                 taps decimating by 10, 4M samples of c64, int16 and uint8,
                 and a 1970-sample uint8 shard whose two launches are each
-                shorter than a tile), each with a random carried tail.
-              am_front_scan, agc_scan, first_order_scan (rows and complex)
-              and biquad_scan must equal their plain versions bit for bit
+                shorter than a tile), each with a random carried tail;
+              bank_rotate: the receiver bank's rotation and discriminator
+                at bank16's (16, 800000), at 17 channels, at 1, 511, 512,
+                513 and 1025 outputs (its 512-output chunk's edges),
+                across the 2^32 wrap, with zero, infinite and NaN samples
+                and over three chained calls.
+              am_front_scan, agc_scan, first_order_scan (rows and complex),
+              biquad_scan and bank_rotate must equal their plain versions bit
+              for bit
               (outputs, modes and final states); pll_scan must reach 90 dB SNR with close final
               states (and equal, with --parent, the parent's kernel bit for
               bit); halo_async must reach 110 dB (it sums in another order
@@ -132,18 +138,20 @@ fails:
               recorded and held against their plain versions on the same
               tensors (halo_async, the bank's front end on one card, on
               blocks 0 and 1, whose halo is block 0's tail, against
-              cfir_ref and the conv form at 110 dB; am_front_scan,
-              agc_scan, first_order_scan's rows and the pilot smoothers bit
-              for bit); the FM channels against the float64 FM-bank oracle
-              (tests/oracle/bank_oracle.py, >= 100 dB), i16 / u8 against
-              the c64 of their values (90; u8 60 then 85), stereo
-              separation and SSB sideband rejection (> 30 dB), two blocks
-              against one of double length (> 60 dB); bank16's kernels a
-              block in a profiler window opened by one block, its
-              cfir_kernel once a block as halo_async's counter says; each
-              path's block time, samples/s and a profiler window, and the
-              bank front at bank16's shape: the kernel, conv1d and the
-              wide matmul;
+              cfir_ref and the conv form at 110 dB; bank_rotate,
+              am_front_scan, agc_scan, first_order_scan's rows and the
+              pilot smoothers bit for bit); the FM channels against the
+              float64 FM-bank oracle (tests/oracle/bank_oracle.py, >= 100
+              dB), i16 / u8 against the c64 of their values (90; u8 60
+              then 85), stereo separation and SSB sideband rejection (> 30
+              dB), two blocks against one of double length (> 60 dB);
+              bank16's kernels a block in a profiler window opened by one
+              block (BANK16_LAUNCHES), its cfir_kernel and
+              bank_rotate_kernel once a block as their counters say; each
+              path's block time, samples/s and a profiler window, the bank
+              front at bank16's shape (the kernel, conv1d and the wide
+              matmul), and bank_rotate there against its bound and the
+              eager form it replaced;
 10. channelizer -- BASELINE config 4 at full width (bench.py:506-539):
               ChannelizedBankConfig(), 1024 channels of 12 taps a branch at
               100 Msps, blocks of 1024 x 16384 samples. pfb_branch bit for
@@ -250,14 +258,15 @@ first_order_scan once per AMReceiver block, twice per ShardedAMReceiver
 block (the DC tracker's rows and the de-emphasis) and per AMRadio callback
 (AmpModem's DC tracker and DeemphasisFilter); in phases 7-9 every
 kernel, per block or call (AM_OPTIONS, phase_surface, the receivers'
-per-block counts: bank halo_async 1 and first_order_scan 1, the mixed
-bank also am_front_scan 2 and first_order_scan 1 more, stereo
+per-block counts: bank halo_async 1 and first_order_scan 1, bank16 and
+WBFM mono also bank_rotate 1, the mixed bank am_front_scan 2 and
+first_order_scan 1 more, stereo
 first_order_scan 1 and first_order_scan_c64 2, SSB agc_scan 2 chunked
 and 1 exact; in phase 10 pfb_branch 1 a block but for the 'conv' engine,
 the FM bank fm_deemph_cols 1, envelope AM first_order_scan 1,
 coherent and mixed am_front_scan 1 and first_order_scan 2; in phase 11
-am_front_scan 1 and first_order_scan 1 a block for AM, halo_async 1 and
-first_order_scan 1 for bank16, pfb_branch 1 and fm_deemph_cols 1 for
+am_front_scan 1 and first_order_scan 1 a block for AM, halo_async 1,
+bank_rotate 1 and first_order_scan 1 for bank16, pfb_branch 1 and fm_deemph_cols 1 for
 config 4, all but the two runtimes at once; in phase 11 the sharded bank
 halo_async 1 (2 with halo='async') and first_order_scan 1 a block, the
 mixed one am_front_scan 2 (the chunked launch and the padded last
@@ -318,6 +327,10 @@ OPS_FIRST_ORDER = 64
 # divide, square, five multiply-adds of its Horner sum, product and three
 # octant fixes, and the divide by 2 pi kd
 OPS_FM_DISCRIMINATOR = 27
+# f32 operations per output of the receiver bank's rotation before its
+# discriminator: the angle's conversion and scale, its sine and cosine,
+# and the rotation's four multiplies and two adds
+OPS_BANK_ROTATION = 10
 TILE_FO = 256 * 32          # samples of one tile of first_order_scan's carry scan
 # f32 operations per sample, row and section that the SOS cascade needs:
 # one double-float step (125 as biquad_scan.cu writes it, 101 with the
@@ -982,6 +995,110 @@ def phase_kernel():
     _compare_halo(f"halo_async AM shape nj={nj - 3}", (x, tail, Tre, Tim, D1, nj - 3))
     _compare_halo("halo_async bank shape short shard n=1970 nj=197 u8",
                   halo_bank_case("u8", 12, 1970))
+    kernel_bank_rotate()
+
+
+def bank_rotate_case(C: int, nj: int, seed: int, n0: int | None = None):
+    """bank_rotate's inputs on the card: y1m (C, nj) complex64 of unit
+    noise, random phases, increments and carries, n0 (random unless
+    given)."""
+    import torch
+    rng = np.random.default_rng(seed)
+    y = rng.standard_normal((C, nj)) + 1j * rng.standard_normal((C, nj))
+    fd = rng.standard_normal(C) + 1j * rng.standard_normal(C)
+    n0 = int(rng.integers(0, 2 ** 32)) if n0 is None else n0
+    t = lambda v, dt: torch.as_tensor(np.asarray(v), dtype=dt, device=DEV)
+    return (t(y.astype(np.complex64), torch.complex64),
+            t(rng.integers(0, 2 ** 32, C), torch.int64), t(n0, torch.int64),
+            t(rng.integers(0, 2 ** 32, C), torch.int64),
+            t(fd.astype(np.complex64), torch.complex64))
+
+
+def kernel_bank_rotate():
+    """The receiver bank's rotation and FM discriminator (cuda/bank_rotate.
+    fm_base: one launch) bit for bit against kernels/bank_rotate.fm_base on
+    the card: bank16's (16, 800000) from random carries, WBFM mono's
+    (1, 200000), 17 channels, 1, 511, 512, 513 and 1025 outputs (the
+    512-output chunk's edges), n0 and
+    phases across the 2^32 wrap, zero, infinite and NaN samples and a zero
+    carry, and three chained calls (the second of one output); each call
+    counted once."""
+    from tpudsp_torch.cuda import bank_rotate as br
+    from tpudsp_torch.kernels import bank_rotate as kbr
+    kd = 0.3125
+
+    def check(name, case):
+        y1m, phase, n0, dtheta, fd = case
+        k0 = br._launch.launches
+        k = br.fm_base(y1m, phase, n0, dtheta, 10, fd, kd)
+        if br._launch.launches != k0 + 1:
+            raise AssertionError(f"bank_rotate {name}: not one launch counted")
+        ref, plain_ms = timed(lambda: kbr.fm_base(y1m, phase, n0, dtheta, 10, fd, kd))
+        return k, _compare_exact(f"bank_rotate {name}", k, ref), plain_ms
+
+    _, err, plain_ms = check("(16, 800000)", bank_rotate_case(16, 800_000, 70))
+    _record("bank_rotate", err, plain_ms)
+    for C, nj in ((1, 200_000), (17, 777), (16, 1), (16, 511), (16, 512), (16, 513),
+                  (3, 1025)):
+        check(f"({C}, {nj})", bank_rotate_case(C, nj, 71 + nj))
+    wrap = bank_rotate_case(16, 5000, 72, n0=2 ** 32 - 25_000)
+    wrap[1][:] = 2 ** 32 - 1 - wrap[1] % 1000
+    check("(16, 5000) across the wrap", wrap)
+    y1m, phase, n0, dtheta, fd = bank_rotate_case(6, 2000, 73)
+    y1m[0, 100:140] = 0.0
+    y1m[1, 511:514] = 0.0
+    fd[2] = 0.0
+    y1m[3, 40] = complex(float("inf"), 0.0)
+    y1m[4, 1023] = complex(float("nan"), 0.5)
+    y1m[5, 1999] = complex(0.25, float("-inf"))
+    k, _, _ = check("(6, 2000) with zero, infinite and NaN samples",
+                    (y1m, phase, n0, dtheta, fd))
+    import torch
+    # patan2 gives 0 for an infinite or NaN product: the rows stay finite,
+    # and channel 5's non-finite last sample is carried as it is
+    if not (bool(torch.isfinite(k[0]).all()) and not bool(torch.isfinite(k[1][5]))):
+        raise AssertionError("bank_rotate: the non-finite samples did not show as planned")
+    y1m, phase, n0, dtheta, fd = bank_rotate_case(16, 3000, 74, n0=2 ** 32 - 15_000)
+    kf = rf = fd
+    for lo, hi in ((0, 1000), (1000, 1001), (1001, 3000)):
+        block = y1m[:, lo:hi].contiguous()
+        k = br.fm_base(block, phase, n0, dtheta, 10, kf, kd)
+        r = kbr.fm_base(block, phase, n0, dtheta, 10, rf, kd)
+        _compare_exact(f"bank_rotate chained call {lo}:{hi} of (16, 3000)", k, r)
+        kf, rf, n0 = k[1], r[1], (n0 + 10 * (hi - lo)) & 0xFFFFFFFF
+
+
+def time_bank_rotate():
+    """bank_rotate at bank16's (16, 800000) by the call and by its kernel's
+    device time, against its bound (y1m read once and the rows written
+    once: 153.6 MB) and against the eager form it replaced in bank_step
+    (the phase lattice, the rotation, _fm_base and the last sample's
+    clone), in the same call."""
+    import torch
+    from tpudsp_torch.chains import bank as cbank
+    from tpudsp_torch.cuda import bank_rotate as br
+    y1m, phase, n0, dtheta, fd = bank_rotate_case(16, 800_000, 75)
+    kd, D1 = 0.3125, 10
+    call = lambda: br.fm_base(y1m, phase, n0, dtheta, D1, fd, kd)
+
+    def eager():
+        theta = cbank.phase_lattice(phase, n0, dtheta, D1, y1m.shape[1])
+        y1 = y1m * torch.polar(torch.ones_like(theta), -theta)
+        return cbank._fm_base(y1, fd, kd), y1[:, -1].clone()
+
+    out = {"call_ms": _cuda_ms(call, 20),
+           "device_ms": _device_ms(call, "bank_rotate_kernel", 20),
+           "eager_form_call_ms": _cuda_ms(eager, 10)}
+    nbytes = y1m.numel() * (8 + 4)
+    ops = y1m.numel() * (OPS_BANK_ROTATION + OPS_FM_DISCRIMINATOR)
+    out["bound_ms"] = max(nbytes / HBM_BPS, ops / F32_FLOPS) * 1e3
+    log(f"timing: bank_rotate (16, 800000): call {out['call_ms']:.4f} ms, device "
+        f"{out['device_ms']:.4f}, bound {out['bound_ms']:.4f} "
+        f"({out['device_ms'] / out['bound_ms']:.2f}x by the device); the eager form: call "
+        f"{out['eager_form_call_ms']:.4f} ms; {json.dumps(out)}")
+    results["kernels"]["bank_rotate"]["ms"] = out["call_ms"]
+    bound("bank_rotate", nbytes, ops)
+    return out
 
 
 def phase_chain():
@@ -1381,13 +1498,14 @@ def kernel_shared_chain():
 
 COUNTED = ("am_front_scan", "agc_scan", "pll_scan", "first_order_scan",
            "first_order_scan_c64", "first_order_scan_mc", "fm_deemph_cols", "biquad_scan",
-           "halo_async", "pfb_branch")
+           "halo_async", "pfb_branch", "bank_rotate")
 
 
 def _counters():
     """Every kernel wrapper's launch counter, by kernel name: (object,
     attribute holder)."""
-    from tpudsp_torch.cuda import agc_scan, biquad_scan, first_order, halo_async, pfb, pll_scan
+    from tpudsp_torch.cuda import (agc_scan, bank_rotate, biquad_scan, first_order, halo_async,
+                                   pfb, pll_scan)
     from tpudsp_torch.cuda import am_backend_scan as scan
     return {"am_front_scan": scan._launch, "agc_scan": agc_scan._launch,
             "pll_scan": pll_scan._launch, "first_order_scan": first_order._launch,
@@ -1395,7 +1513,7 @@ def _counters():
             "first_order_scan_mc": first_order.first_order_apply_blocked_mc,
             "fm_deemph_cols": first_order.fm_deemph_cols,
             "biquad_scan": biquad_scan.sos_apply_df, "halo_async": halo_async._launch,
-            "pfb_branch": pfb.branch_accumulate}
+            "pfb_branch": pfb.branch_accumulate, "bank_rotate": bank_rotate._launch}
 
 
 def zero_counts():
@@ -1858,23 +1976,41 @@ def _pure_tone_hz(a, fs: float = 48_000.0) -> float:
     return float(np.fft.rfftfreq(len(a), 1 / fs)[np.argmax(spec[3:]) + 3])
 
 
+# bank16's hand-kernel launches a block, and all its kernels a block in a
+# profiler window (bank16_traced_launches)
+BANK16_PER_BLOCK = {"halo_async": 1, "bank_rotate": 1, "first_order_scan": 1}
+BANK16_LAUNCHES = 10
+
+
+def _hold_bank_rotate(path: str, calls):
+    """Each recorded bank_rotate launch (cuda/bank_rotate.fm_base) against
+    its plain version kernels/bank_rotate.fm_base on the same CUDA tensors,
+    bit for bit."""
+    from tpudsp_torch.kernels import bank_rotate as kbr
+    for k, (args, out) in enumerate(calls):
+        _compare_exact(f"{path} block {k} bank_rotate {tuple(out[0].shape)}", out,
+                       kbr.fm_base(*args))
+
+
 def receivers_bank16(timings):
     """bench.py's bank16 (16 FM channels, linspace(-1e6, 1e6, 16), 2.4
     Msps) on three 8M-sample blocks in c64, i16 and u8."""
     import torch
     from tpudsp_torch.chains import BankConfig, ReceiverBank
-    from tpudsp_torch.cuda import first_order, halo_async
+    from tpudsp_torch.cuda import bank_rotate, first_order, halo_async
     cfg = BankConfig(freqs=BANK_FREQS)
     x = bank_signal(3 * N_BANK, ("fm",) * 16, seed=20)
     wire = {k: _split(v, N_BANK) for k, v in wire_of(x).items()}
     outs, rxs = {}, {}
     for fmt in ("c64", "i16", "u8", "c64_i16", "c64_u8"):
         rx = rxs[fmt] = ReceiverBank(cfg, N_BANK, input_format=fmt[:3], device=DEV)
-        outs[fmt], (front, tails) = _run_chain(
-            f"bank16 {fmt}", rx, wire[fmt], {"halo_async": 1, "first_order_scan": 1},
-            [(halo_async, "cfir", 2), (first_order, "first_order_apply_blocked", 1)])
+        outs[fmt], (front, rot, tails) = _run_chain(
+            f"bank16 {fmt}", rx, wire[fmt], BANK16_PER_BLOCK,
+            [(halo_async, "cfir", 2), (bank_rotate, "fm_base", 2),
+             (first_order, "first_order_apply_blocked", 1)])
         if fmt in ("c64", "i16", "u8"):
             _hold_front(f"bank16 {fmt}", front)
+            _hold_bank_rotate(f"bank16 {fmt}", rot)
             _hold_first_order(f"bank16 {fmt}", tails)
             timings[f"bank16 {fmt}"] = (rx, wire[fmt], N_BANK)
         if fmt == "c64":
@@ -1895,38 +2031,53 @@ def receivers_bank16(timings):
     bank16_traced_launches(rxs["c64"], wire["c64"])
 
 
-def bank16_traced_launches(rx, blocks):
+def bank16_traced_launches(rx, blocks, tries: int = 3):
     """bank16's launches a block as torch.profiler sees them, as the
     benchmark's traced window counts them: one block opens the window, then
-    the kernels of the others (copies and sets not counted); the front's
-    cfir_kernel once a block, as halo_async's launch counter says."""
+    the kernels of the others (copies and sets not counted), BANK16_LAUNCHES
+    a block; the front's cfir_kernel and the rotation's bank_rotate_kernel
+    once a block, as halo_async's and bank_rotate's launch counters say. A
+    window whose trace holds fewer hand kernels than the counters (the
+    profiler can drop a block's device events) is traced again, up to
+    ``tries`` windows, as the benchmark's traced window is."""
     import re
 
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
-    from tpudsp_torch.cuda import halo_async
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        rx(blocks[0])
-        torch.cuda.synchronize()
-        n0 = halo_async._launch.launches
-        with record_function("smoke.window"):
-            for b in blocks[1:]:
-                rx(b)
-            torch.cuda.synchronize()
-    counted = halo_async._launch.launches - n0
-    events = list(prof.events())
-    host = {e.name for e in events if e.device_type != DeviceType.CUDA}
-    t0 = next(e for e in events if e.name == "smoke.window").time_range.start
-    kernels = [e.name for e in events if e.device_type == DeviceType.CUDA and e.name not in host
-               and e.time_range.start >= t0 and not e.name.startswith(("Memcpy", "Memset"))]
-    cfir = [k for k in kernels if re.search(r"(?<![A-Za-z0-9_])cfir_kernel(?![A-Za-z0-9_])", k)]
+    from tpudsp_torch.cuda import bank_rotate, halo_async
+    counters = {"cfir_kernel": halo_async._launch, "bank_rotate_kernel": bank_rotate._launch}
     nb = len(blocks) - 1
-    log(f"receivers: bank16 c64 traced over {nb} blocks: {len(kernels) / nb:g} kernels a block, "
-        f"cfir_kernel {len(cfir)} in the trace, {counted} by halo_async's counter")
-    if not len(cfir) == counted == nb:
-        raise AssertionError(f"receivers: bank16 cfir_kernel {len(cfir)} in the trace, "
+    for attempt in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            rx(blocks[0])
+            torch.cuda.synchronize()
+            n0 = {k: c.launches for k, c in counters.items()}
+            with record_function("smoke.window"):
+                for b in blocks[1:]:
+                    rx(b)
+                torch.cuda.synchronize()
+        counted = {k: c.launches - n0[k] for k, c in counters.items()}
+        events = list(prof.events())
+        host = {e.name for e in events if e.device_type != DeviceType.CUDA}
+        t0 = next(e for e in events if e.name == "smoke.window").time_range.start
+        kernels = [e.name for e in events
+                   if e.device_type == DeviceType.CUDA and e.name not in host
+                   and e.time_range.start >= t0 and not e.name.startswith(("Memcpy", "Memset"))]
+        traced = {k: sum(1 for n in kernels
+                         if re.search(rf"(?<![A-Za-z0-9_]){k}(?![A-Za-z0-9_])", n))
+                  for k in counters}
+        log(f"receivers: bank16 c64 traced over {nb} blocks (window {attempt + 1}): "
+            f"{len(kernels) / nb:g} kernels a block (expected {BANK16_LAUNCHES}); in the "
+            f"trace {traced}, by the counters {counted}")
+        if traced == counted:
+            break
+    if not traced == counted == {k: nb for k in counters}:
+        raise AssertionError(f"receivers: bank16 hand kernels {traced} in the trace, "
                              f"{counted} counted, {nb} blocks")
+    if len(kernels) != BANK16_LAUNCHES * nb:
+        raise AssertionError(f"receivers: bank16 {len(kernels) / nb:g} kernels a block, "
+                             f"not {BANK16_LAUNCHES}")
 
 
 def receivers_mixed(timings):
@@ -1984,7 +2135,7 @@ def receivers_wbfm(timings):
     separation and wire formats."""
     import torch
     from tpudsp_torch.chains import WBFMStereoReceiver, mono_receiver
-    from tpudsp_torch.cuda import first_order, halo_async
+    from tpudsp_torch.cuda import bank_rotate, first_order, halo_async
     from tpudsp_torch.kernels import iir as kiir
     from tpudsp_torch.kernels import pll as kpll
     t = torch.arange(3 * N_WBFM, dtype=torch.float64, device=DEV)
@@ -1992,10 +2143,13 @@ def receivers_wbfm(timings):
     xm = torch.polar(torch.full_like(t, 0.7),
                      w(100e3) * t + 75e3 / 1000.0 * torch.sin(w(1000.0) * t)).to(torch.complex64)
     rx = mono_receiver(100e3, block_len=N_WBFM, device=DEV)
-    outs, (front, tails) = _run_chain(
-        "wbfm mono", rx, _split(xm, N_WBFM), {"halo_async": 1, "first_order_scan": 1},
-        [(halo_async, "cfir", 2), (first_order, "first_order_apply_blocked", 1)])
+    outs, (front, rot, tails) = _run_chain(
+        "wbfm mono", rx, _split(xm, N_WBFM),
+        {"halo_async": 1, "bank_rotate": 1, "first_order_scan": 1},
+        [(halo_async, "cfir", 2), (bank_rotate, "fm_base", 2),
+         (first_order, "first_order_apply_blocked", 1)])
     _hold_front("wbfm mono", front)
+    _hold_bank_rotate("wbfm mono", rot)
     _hold_first_order("wbfm mono", tails)
     timings["wbfm mono c64"] = (rx, _split(xm, N_WBFM), N_WBFM)
     ref = bank_oracle_f64(rx, xm, [0])
@@ -2139,6 +2293,7 @@ def phase_receivers():
     receivers_ssb(timings)
     res = time_receivers(timings)
     res["bank16 front ms"] = time_bank_front(results.pop("bank_front"))
+    res["bank16 bank_rotate"] = time_bank_rotate()
     log(f"timing: receivers: {json.dumps(res)}")
 
 
@@ -2978,7 +3133,7 @@ PFB_WIRE_BPS = 2 * PFB_FS   # config 4's u8 wire: 200 MB/s
 # sample_format and input_format of the AM cells, by the receiver's format
 AM_STREAM = {"i16": ("int16_raw", "i16"), "u8": ("uint8_raw", "u8"), "c64": ("int16", "c64")}
 PER_BLOCK = {"am": {"am_front_scan": 1, "first_order_scan": 1},
-             "bank16": {"halo_async": 1, "first_order_scan": 1},
+             "bank16": BANK16_PER_BLOCK,
              "config4": {"pfb_branch": 1, "fm_deemph_cols": 1}}
 
 
@@ -3736,6 +3891,9 @@ KERNELS = [
     # the column kernel's FM instance, fm_deemph_cols
     ("fm_deemph_cols", "tpudsp_torch/csrc/first_order_scan.cu",
      "tpudsp/chains/channelizer.py:368"),
+    # the receiver bank's phase lattice, rotation and discriminator in XLA:
+    # not a Pallas kernel
+    ("bank_rotate", "tpudsp_torch/csrc/bank_rotate.cu", "tpudsp/chains/bank.py:304"),
 ]
 
 

@@ -13,8 +13,8 @@ from tpudsp_torch.cuda import build
 def test_every_source_is_registered():
     sources = sorted(p.stem for p in build.CSRC.glob("*.cu"))
     assert sources == sorted(build.SIGNATURES)
-    assert sorted(p.name for p in build.CSRC.glob("*.cuh")) == ["scan_step.cuh",
-                                                                 "tile_chain.cuh"]
+    assert sorted(p.name for p in build.CSRC.glob("*.cuh")) == [
+        "fm_discriminator.cuh", "scan_step.cuh", "tile_chain.cuh"]
 
 
 @pytest.fixture

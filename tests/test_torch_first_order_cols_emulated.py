@@ -72,6 +72,7 @@ def lib(tmp_path_factory):
     cut = chain.index("// 32-bit slots of a link")
     (out / "tile_chain.cuh").write_text(chain[:cut] + (HERE / "links.h").read_text())
     shutil.copy(HERE / "cuda_runtime.h", out / "cuda_runtime.h")
+    shutil.copy(build.CSRC / "fm_discriminator.cuh", out / "fm_discriminator.cuh")
     (out / "first_order_scan.cpp").write_text(emulated_source())
     so = out / "libfirst_order_emulated.so"
     res = subprocess.run([gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-fno-fast-math",

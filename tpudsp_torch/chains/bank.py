@@ -18,15 +18,19 @@ The back end runs at the channel rate over the C rows at once:
 discriminator (FM), envelope or the coherent AM back end (AM), the
 one-sided audio decimator (USB / LSB), selected per channel by masks with
 no branch; then the audio decimation (one f32 product) and the
-de-emphasis (one ``csrc/first_order_scan.cu`` launch of C rows). The
+de-emphasis (one ``csrc/first_order_scan.cu`` launch of C rows). A bank
+whose every channel is FM takes the rotation and the discriminator in one
+launch of ``csrc/bank_rotate.cu`` (``cuda/bank_rotate.fm_base``) from the
+filter's output to the FM rows; the other banks rotate with eager passes. The
 coherent AM channels' AGC + carrier PLL is one ``csrc/am_front_scan.cu``
 launch over the Ca streams, their DC tracker one first_order_scan launch
 of Ca rows.
 
 ``bank_step`` only enqueues device work: it reads no value of a device
 tensor on the host. Its two stages are the spans ``bank_step.channelize``
-(the front end and the rotation) and ``bank_step.demod`` (the back end,
-the audio decimation and the de-emphasis), the channelized bank's names.
+(the front end, and the rotation but in an all-FM bank) and
+``bank_step.demod`` (the back end, with an all-FM bank's rotation, the
+audio decimation and the de-emphasis), the channelized bank's names.
 """
 
 from __future__ import annotations
@@ -38,7 +42,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..cuda import first_order, halo_async
+from ..cuda import bank_rotate, first_order, halo_async
 from ..cuda.am_backend_scan import front_chunked
 from ..design import firdes, iirdes
 from ..kernels import agc as kagc
@@ -48,6 +52,7 @@ from ..kernels import decimate as kdec
 from ..kernels import f32_matmul
 from ..kernels import warmup as kwarm
 from ..kernels.fastmath import patan2
+from ..kernels.nco import _U32_TO_RAD, MASK, mul_u32
 from ..kernels.pll import PllState
 from ..utils.profiling import annotate
 from . import metrics as kmet
@@ -55,8 +60,6 @@ from .am import INPUT_FORMATS, _check_back_end
 from .metrics import BlockMetrics
 
 TWO_PI = 2.0 * np.pi
-MASK = 0xFFFFFFFF
-_U32_TO_RAD = float(np.float32(TWO_PI / 4294967296.0))
 # the coherent AM channels' chunk on the 'kernel' back end: the JAX
 # package's Pallas chunk (front_chunked_pallas' default); 'xla' takes
 # warmup.chunk_for(warmup), the JAX package's XLA chunk
@@ -247,13 +250,6 @@ def build(cfg: BankConfig, input_format: str = "c64", device="cuda"):
     return params, state
 
 
-def mul_u32(a, b):
-    """(a * b) mod 2^32 for int64 tensors (or ints) holding values in [0,
-    2^32): a is split in 16-bit halves, so no intermediate passes 2^49
-    (the plain product of two 32-bit values overflows int64)."""
-    return ((((a >> 16) * b & MASK) << 16) + (a & 0xFFFF) * b) & MASK
-
-
 def phase_lattice(phase, n0, dtheta, D1: int, nj: int):
     """The output rotation's angles theta[c, m] = 2 pi / 2^32 x ((phase_c +
     n0 dtheta_c + m dtheta_c D1) mod 2^32), f32 (C, nj), from the integer
@@ -299,31 +295,39 @@ def bank_step(params: BankParams, state: BankState, iq, *, cfg: BankConfig,
     K1, K2 = cfg.taps1, cfg.taps2
     n = iq.shape[0]
 
+    # every channel FM: the output rotation and the discriminator are one
+    # launch (cuda/bank_rotate) in the demod stage, and y1 is never formed
+    demods = _demod_tuple(cfg)
+    all_fm = all(d == "fm" for d in demods)
     with annotate("bank_step.channelize"):
-        # batched mix + channelize -> (C, N/D1) complex, then the output
-        # rotation e^{-j w_c (n0 + m D1)} from the uint32 phase lattice
+        # batched mix + channelize -> (C, N/D1) complex, then (but in an
+        # all-FM bank) the output rotation e^{-j w_c (n0 + m D1)} from the
+        # uint32 phase lattice
         nj1 = n // D1
         y1m = halo_async.cfir(iq, state.in_tail, params.taps_re, params.taps_im, D1, nj1)
-        theta = phase_lattice(state.phase, state.n0, params.dtheta, D1, nj1)
-        y1 = y1m * torch.polar(torch.ones_like(theta), -theta)
+        if not all_fm:
+            theta = phase_lattice(state.phase, state.n0, params.dtheta, D1, nj1)
+            y1 = y1m * torch.polar(torch.ones_like(theta), -theta)
 
     with annotate("bank_step.demod"):
-        demods = _demod_tuple(cfg)
         ssb_any = any(d in ("usb", "lsb") for d in demods)
         all_ssb = all(d in ("usb", "lsb") for d in demods)
-        if cfg.demod == "fm":
-            base = _fm_base(y1, state.fd_prev, cfg.kd)
-        elif cfg.demod == "am":
-            base = torch.abs(y1)
-        elif isinstance(cfg.demod, str) and ssb_any:
-            # the real demod runs below through the one-sided decimator; this
-            # base only keeps the (unused) a_tail carry
-            base = y1.real
-        else:  # mixed bank: every demod computed, selected per channel
-            base = torch.where(params.fm_mask[:, None],
-                               _fm_base(y1, state.fd_prev, cfg.kd),
-                               torch.where(params.ssb_mask[:, None], y1.real, torch.abs(y1)))
-        fd_prev = y1[:, -1].clone()
+        if all_fm:
+            base, fd_prev = bank_rotate.fm_base(y1m, state.phase, state.n0, params.dtheta, D1,
+                                                state.fd_prev, cfg.kd)
+        else:
+            if cfg.demod == "am":
+                base = torch.abs(y1)
+            elif isinstance(cfg.demod, str) and ssb_any:
+                # the real demod runs below through the one-sided decimator;
+                # this base only keeps the (unused) a_tail carry
+                base = y1.real
+            else:  # mixed bank: every demod computed, selected per channel
+                base = torch.where(params.fm_mask[:, None],
+                                   _fm_base(y1, state.fd_prev, cfg.kd),
+                                   torch.where(params.ssb_mask[:, None], y1.real,
+                                               torch.abs(y1)))
+            fd_prev = y1[:, -1].clone()
 
         am_idx = _am_indices(cfg)
         front, dc = state.front, state.dc

@@ -10,10 +10,10 @@ by ``nvcc`` (no PyTorch headers, so a build takes seconds) into
 ``-fmad=false`` keeps every multiply and add rounded on its own, as the
 plain PyTorch versions round them; there is no ``--use_fast_math``.
 A library is rebuilt when its source, or any header in ``csrc/`` (the
-sources share ``scan_step.cuh`` and ``tile_chain.cuh``), is newer than
-it. ptxas's report of each kernel's registers, shared memory and spills
-(``-Xptxas -v``) is kept beside the library as
-``_build/lib<name>.ptxas.txt``.
+sources share ``scan_step.cuh``, ``tile_chain.cuh`` and
+``fm_discriminator.cuh``), is newer than it. ptxas's report of each
+kernel's registers, shared memory and spills (``-Xptxas -v``) is kept
+beside the library as ``_build/lib<name>.ptxas.txt``.
 """
 
 from __future__ import annotations
@@ -58,6 +58,9 @@ SIGNATURES = {
     },
     "pfb_branch": {
         "pfb_branch": [_P] * 4 + [_I] * 5 + [_P],
+    },
+    "bank_rotate": {
+        "bank_rotate": [_P] * 7 + [_I] * 3 + [_F] * 2 + [_P],
     },
 }
 

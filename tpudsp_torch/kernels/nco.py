@@ -29,6 +29,13 @@ def u32_to_rad(u: int) -> float:
     return float(u) * TWO_PI / 4294967296.0
 
 
+def mul_u32(a, b):
+    """(a * b) mod 2^32 for int64 tensors (or ints) holding values in [0,
+    2^32): a is split in 16-bit halves, so no intermediate passes 2^49
+    (the plain product of two 32-bit values overflows int64)."""
+    return ((((a >> 16) * b & MASK) << 16) + (a & 0xFFFF) * b) & MASK
+
+
 def nco_angles(phase_u, dtheta_u: int, n: int, device=None):
     """Per-sample oscillator angles of an n-sample block: (theta (n,) f32,
     next phase). phase_u is a host int or an int64 0-d tensor on
