@@ -24,9 +24,11 @@ from tests.util import snr_db
 from tpudsp.chains import bank as jbank
 from tpudsp_torch import convert
 from tpudsp_torch.chains import bank as tbank
+from tpudsp_torch.chains import channelizer as tch
 from tpudsp_torch.cuda import halo_async
 from tpudsp_torch.design import firdes, iirdes
 from tpudsp_torch.kernels import decimate as tdec
+from tpudsp_torch.parallel import ShardedBank, ShardedChannelizedBank, ShardedScanner, make_mesh
 
 FS = 2_400_000.0
 N = 50_000            # samples a block: 5000 at the channel rate, 1000 audio
@@ -429,3 +431,103 @@ def test_bank_rules():
     with pytest.raises(TypeError, match="uint8"):
         rx(np.zeros(N, np.complex64))
     assert tbank.ReceiverBank(ct, block_len=N, backend="pallas", device="cpu").backend == "kernel"
+
+
+# the plan table: (family, demod, config keywords) -> (route, AM channels,
+# coherent, any SSB, warmup, coherent chunk by back end). The receiver bank
+# adds the squelch countdown to its warmup and takes the Pallas chunk at
+# any warmup; the channelized bank caps it at PALLAS_WARMUP_MAX.
+MIXED4 = ("am", "fm", "am", "usb")
+PLAN_CASES = {
+    "fm": ("bank", "fm", {}, ("fm", (), False, False, 3840, 1024)),
+    "fm_tuple": ("bank", ("fm",) * 4, {}, ("fm", (), False, False, 3840, 1024)),
+    "am": ("bank", "am", {}, ("am", (0, 1, 2, 3), False, False, 3840, 1024)),
+    "am_coherent": ("bank", "am", dict(am_coherent=True),
+                    ("cam", (0, 1, 2, 3), True, False, 3840, 1024)),
+    "am_coherent_squelch": ("bank", "am", dict(am_coherent=True, squelch=True,
+                                               squelch_timeout=500),
+                            ("cam", (0, 1, 2, 3), True, False, 4352, 1024)),
+    "usb": ("bank", "usb", {}, ("ssb", (), False, True, 3840, 1024)),
+    "lsb": ("bank", "lsb", {}, ("ssb", (), False, True, 3840, 1024)),
+    "mixed": ("bank", MIXED4, {}, ("mixed", (0, 2), False, True, 3840, 1024)),
+    "mixed_coherent": ("bank", MIXED4, dict(am_coherent=True),
+                       ("mixed", (0, 2), True, True, 3840, 1024)),
+    "ch_fm": ("channelized", "fm", {}, ("fm", (), False, False, 3840, 1024)),
+    "ch_am": ("channelized", "am", {}, ("am", (0, 1, 2, 3), False, False, 3840, 1024)),
+    "ch_am_tuple": ("channelized", ("am",) * 4, {},
+                    ("am", (0, 1, 2, 3), False, False, 3840, 1024)),
+    "ch_am_coherent": ("channelized", "am", dict(am_coherent=True),
+                       ("cam", (0, 1, 2, 3), True, False, 3840, 1024)),
+    "ch_am_coherent_capped": ("channelized", "am", dict(am_coherent=True, agc_bandwidth=0.005),
+                              ("cam", (0, 1, 2, 3), True, False, 7424, 7424)),
+    "ch_mixed": ("channelized", ("am", "fm", "am", "fm"), {},
+                 ("mixed", (0, 2), False, False, 3840, 1024)),
+    "ch_mixed_coherent": ("channelized", ("am", "fm", "am", "fm"), dict(am_coherent=True),
+                          ("mixed", (0, 2), True, False, 3840, 1024)),
+}
+
+
+def _plan_cfg(family, demod, kw):
+    if family == "bank":
+        return tbank.BankConfig(freqs=FREQS, iq_rate=FS, demod=demod, kd=KD, **kw)
+    return tch.ChannelizedBankConfig(
+        channelizer=tch.ChannelizerConfig(nchan=4, iq_rate=FS), demod=demod, **kw)
+
+
+@pytest.mark.parametrize("name", list(PLAN_CASES))
+def test_demod_plan_table(name):
+    """Each route of both bank families, from the demod string or tuple to
+    the plan the steps read; the de-emphasis pair is the float64 design
+    value at the rate the family runs it (the receiver bank's audio rate,
+    the channelized bank's channel rate at its tau)."""
+    family, demod, kw, (route, am_idx, coherent, any_ssb, warmup, kernel_chunk) = \
+        PLAN_CASES[name]
+    cfg = _plan_cfg(family, demod, kw)
+    plan = cfg.plan
+    assert plan is cfg.plan
+    assert plan.demods == (demod if isinstance(demod, tuple) else (demod,) * 4)
+    assert (plan.route, plan.am_idx, plan.coherent, plan.any_ssb) == (
+        route, am_idx, coherent, any_ssb)
+    assert (plan.warmup, plan.chunk) == (warmup, {"kernel": kernel_chunk, "xla": warmup})
+    rate = FS / 50 if family == "bank" else FS / 4
+    want = iirdes.deemphasis_coeffs(rate, cfg.deemph_tau if family != "bank" else 75e-6)
+    assert plan.deemph == want
+    assert all(type(v) is float for v in plan.deemph)
+
+
+def _plan_banks(kind):
+    """(a bank built from a fresh config, one block for it)."""
+    rng = np.random.default_rng(4)
+    if kind in ("receiver_bank", "sharded_bank"):
+        cfg = tbank.BankConfig(freqs=FREQS, iq_rate=FS, demod=MIXED4, kd=KD, am_coherent=True)
+        n = 10_000
+        bank = (tbank.ReceiverBank(cfg, block_len=n, device="cpu") if kind == "receiver_bank"
+                else ShardedBank(cfg, make_mesh(1, 1, "cpu"), n, device="cpu"))
+    else:
+        cfg = tch.ChannelizedBankConfig(
+            channelizer=tch.ChannelizerConfig(nchan=8, iq_rate=FS),
+            demod=("am", "fm") * 4, am_coherent=True)
+        n = 4096
+        make = {"channelized_bank": lambda: tch.ChannelizedBank(cfg, n, device="cpu"),
+                "sharded_channelized_bank": lambda: ShardedChannelizedBank(
+                    cfg, make_mesh(1, 1, "cpu"), n, device="cpu"),
+                "scanner": lambda: ShardedScanner(cfg, make_mesh(1, 1, "cpu"), n,
+                                                  device="cpu")}[kind]
+        bank = make()
+    x = (0.1 * (rng.standard_normal((n, 2)) @ [1, 1j])).astype(np.complex64)
+    return bank, x
+
+
+@pytest.mark.parametrize("kind", ["receiver_bank", "channelized_bank", "sharded_bank",
+                                  "sharded_channelized_bank", "scanner"])
+def test_steps_derive_no_plan(kind, monkeypatch):
+    """The build derives a bank's plan once; three blocks through its step
+    derive none."""
+    calls = []
+    derive = tbank.demod_plan
+    monkeypatch.setattr(tbank, "demod_plan", lambda cfg: calls.append(cfg) or derive(cfg))
+    bank, x = _plan_banks(kind)
+    assert len(calls) == 1
+    for _ in range(3):
+        bank(x)
+    assert len(calls) == 1

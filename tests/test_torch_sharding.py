@@ -146,6 +146,7 @@ JAX_CASES = {
     "fm_1x4": (FM, (1, 4), "fm"),
     "am_2x2": (AM, (2, 2), "am"),
     "mixed_2x2": (MIXED, (2, 2), "am"),
+    "mixed_1x4": (MIXED, (1, 4), "am"),
 }
 
 
@@ -174,8 +175,9 @@ def ring4(tmp_path_factory):
 def test_sharded_bank_matches_jax(ring4, name):
     """Four-rank meshes against tpudsp's ShardedBank on the same mesh: the
     FM bank at (2, 2) and (1, 4), the coherent AM bank at (2, 2), the
-    mixed am / fm / am / usb bank with the channel axis sharded ('all';
-    'gather', the channels local, runs on the (1, 1) mesh below)."""
+    mixed am / fm / am / usb bank with the channel axis sharded at (2, 2)
+    ('all') and with the channels local to four time ranks at (1, 4)
+    ('gather', which the (1, 1) mesh below also runs)."""
     _, jax_out, port = ring4
     cfg = JAX_CASES[name][0]
     y_jax, y = jax_out[name], port[name]

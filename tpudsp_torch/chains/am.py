@@ -39,6 +39,7 @@ Two back ends (AGC -> AmpModem -> de-emphasis at the pcm rate):
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from fractions import Fraction
 from typing import NamedTuple
@@ -67,6 +68,31 @@ PLANS = ("fused", "composed")
 BACKENDS = ("kernel", "pallas", "xla")   # 'pallas': the JAX name of 'kernel'
 
 
+def check_format(input_format: str) -> None:
+    """Raise ValueError on a wire format that is not one of INPUT_FORMATS."""
+    if input_format not in INPUT_FORMATS:
+        raise ValueError(f"unknown input_format {input_format!r} "
+                         "(use 'c64', 'i16' or 'u8')")
+
+
+def check_input(iq, input_format: str, device):
+    """iq as a contiguous tensor on ``device``: (N,) complex64, or for
+    'i16' / 'u8' a raw (N, 2) int16 / uint8 block (TypeError otherwise)."""
+    iq = torch.as_tensor(iq, device=device)
+    if input_format in ("i16", "u8"):
+        want = torch.int16 if input_format == "i16" else torch.uint8
+        if iq.dtype != want or iq.ndim != 2 or iq.shape[1] != 2:
+            raise TypeError(
+                f"input_format={input_format!r} expects (N, 2) {want} "
+                f"[re, im]; got {iq.dtype} {tuple(iq.shape)}")
+    else:
+        iq = iq.to(torch.complex64)
+        if iq.ndim != 1:
+            raise TypeError(f"input_format='c64' expects (N,) complex; "
+                            f"got shape {tuple(iq.shape)}")
+    return iq.contiguous()
+
+
 @dataclass(frozen=True)
 class AMConfig:
     bandwidth: float = 15000.0      # bandpass cutoff in Hz
@@ -88,6 +114,28 @@ class AMConfig:
     @property
     def rate(self) -> float:
         return self.pcm_rate / self.iq_rate
+
+    # the design values the steps read, each derived once from the config
+
+    @functools.cached_property
+    def pq(self):
+        """(P, Q): P outputs per Q inputs of a rational rate; None else."""
+        f = Fraction(self.rate).limit_denominator(10000)
+        return (f.numerator, f.denominator) if abs(float(f) - self.rate) < 1e-12 else None
+
+    @functools.cached_property
+    def warmup(self) -> int:
+        """The chunked loops' warmup window (kernels/warmup.py): the AGC,
+        the carrier PLL and the squelch countdown."""
+        return kwarm.warmup_for(
+            agc_alpha=self.agc_bandwidth,
+            pll_bw=kam.PLL_BW if self.carrier else None,
+            squelch_timeout=self.squelch_timeout if self.squelch else 0)
+
+    @functools.cached_property
+    def deemph(self) -> tuple:
+        """The float64 de-emphasis pair (b0, a) at the pcm rate."""
+        return iirdes.deemphasis_coeffs(self.pcm_rate)
 
 
 class AMState(NamedTuple):
@@ -112,13 +160,6 @@ class AMParams(NamedTuple):
     u8_dc: torch.Tensor | None = None  # (P,) per-phase tap sums (u8 wire)
 
 
-def _rational(rate: float, max_den: int = 10000):
-    f = Fraction(rate).limit_denominator(max_den)
-    if abs(float(f) - rate) < 1e-12:
-        return f.numerator, f.denominator  # P outputs per Q inputs
-    return None
-
-
 def build(cfg: AMConfig, block_len: int, input_format: str = "c64",
           device="cuda"):
     """Design-time: build (params, init_state, n_out) on ``device`` (the
@@ -130,9 +171,7 @@ def build(cfg: AMConfig, block_len: int, input_format: str = "c64",
     scale folds into the fused taps and the carried tail stays int16.
     'u8' plans for RTL-SDR bytes: the taps carry 1/127.5 and ``u8_dc`` the
     per-phase tap sums."""
-    if input_format not in INPUT_FORMATS:
-        raise ValueError(f"unknown input_format {input_format!r} "
-                         "(use 'c64', 'i16' or 'u8')")
+    check_format(input_format)
     rate = cfg.rate
     n_out_f = block_len * rate
     n_out = int(round(n_out_f))
@@ -140,7 +179,7 @@ def build(cfg: AMConfig, block_len: int, input_format: str = "c64",
         raise ValueError(
             f"block_len {block_len} * rate {rate} must be integral, got {n_out_f}"
         )
-    pq = _rational(rate)
+    pq = cfg.pq
     if pq is None and input_format != "c64":
         raise ValueError(f"input_format={input_format!r} needs the fused plan "
                          "(a rational rate)")
@@ -166,7 +205,7 @@ def build(cfg: AMConfig, block_len: int, input_format: str = "c64",
         taps_fused = taps_fused * np.float32(1.0 / 127.5)
 
     f32 = lambda v: torch.tensor(np.asarray(v, np.float32), device=device)
-    de_b0, de_a = iirdes.deemphasis_coeffs(cfg.pcm_rate)
+    de_b0, de_a = cfg.deemph
     params = AMParams(
         h_bp=f32(h_bp),
         H_rs=f32(H),
@@ -224,12 +263,8 @@ def _back_end(params: AMParams, state: AMState, baseband, cfg: AMConfig,
     backend='xla' through the separate AGC and carrier-PLL scans (chunked,
     or exact with exact=True) and two blocked first-order scans."""
     backend = _check_back_end(exact, backend)
-    # warmup derived from the loops in the chunked scan (kernels/warmup.py)
-    warmup = kwarm.warmup_for(
-        agc_alpha=cfg.agc_bandwidth,
-        pll_bw=kam.PLL_BW if cfg.carrier else None,
-        squelch_timeout=cfg.squelch_timeout if cfg.squelch else 0)
-    de_b0, de_a = iirdes.deemphasis_coeffs(cfg.pcm_rate)
+    warmup = cfg.warmup
+    de_b0, de_a = cfg.deemph
     if backend == "kernel":
         p = kab.make_params(params.agc, params.mod, de_b0, de_a,
                             carrier=cfg.carrier)
@@ -287,7 +322,7 @@ def am_step_fused(params: AMParams, state: AMState, iq, *, cfg: AMConfig,
     complex64, or (N, 2) raw int16 / uint8 when built for 'i16' / 'u8'.
     Returns (state, (pcm, BlockMetrics))."""
     with annotate("am_step.front"):
-        P, Q = _rational(cfg.rate)
+        P, Q = cfg.pq
         nj = params.q.shape[0] // P
         if state.rs_tail.dtype == torch.uint8:
             rs_tail, y48 = kdec.fused_frontend_apply_shared_u8(
@@ -342,7 +377,7 @@ class AMReceiver(nn.Module):
         super().__init__()
         if plan not in PLANS:
             raise ValueError(f"unknown plan {plan!r} (use 'fused' or 'composed')")
-        if plan == "fused" and _rational(cfg.rate) is None:
+        if plan == "fused" and cfg.pq is None:
             plan = "composed"
         if input_format in ("i16", "u8") and plan != "fused":
             raise ValueError(f"input_format={input_format!r} requires the "
@@ -372,22 +407,11 @@ class AMReceiver(nn.Module):
 
     def forward(self, iq):
         with annotate("AMReceiver.step"):
-            iq = torch.as_tensor(iq, device=self.device)
-            if self.input_format in ("i16", "u8"):
-                want = torch.int16 if self.input_format == "i16" else torch.uint8
-                if iq.dtype != want or iq.ndim != 2 or iq.shape[1] != 2:
-                    raise TypeError(
-                        f"input_format={self.input_format!r} expects (N, 2) "
-                        f"{want} [re, im]; got {iq.dtype} {tuple(iq.shape)}")
-            else:
-                iq = iq.to(torch.complex64)
-                if iq.ndim != 1:
-                    raise TypeError(f"input_format='c64' expects (N,) complex; "
-                                    f"got shape {tuple(iq.shape)}")
+            iq = check_input(iq, self.input_format, self.device)
             if iq.shape[0] != self.block_len:
                 raise ValueError(f"expected block of {self.block_len} samples")
             step = am_step_fused if self.plan == "fused" else am_step_composed
-            self.state, (pcm, metrics) = step(self.params, self.state, iq.contiguous(),
+            self.state, (pcm, metrics) = step(self.params, self.state, iq,
                                               cfg=self.cfg, exact=self.exact,
                                               backend=self.backend)
             self.metrics = metrics

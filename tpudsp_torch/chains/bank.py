@@ -56,7 +56,7 @@ from ..kernels.nco import _U32_TO_RAD, MASK, mul_u32
 from ..kernels.pll import PllState
 from ..utils.profiling import annotate
 from . import metrics as kmet
-from .am import INPUT_FORMATS, _check_back_end
+from .am import _check_back_end, check_format, check_input
 from .metrics import BlockMetrics
 
 TWO_PI = 2.0 * np.pi
@@ -64,17 +64,6 @@ TWO_PI = 2.0 * np.pi
 # package's Pallas chunk (front_chunked_pallas' default); 'xla' takes
 # warmup.chunk_for(warmup), the JAX package's XLA chunk
 KERNEL_CHUNK = 1024
-
-
-def _demod_tuple(cfg) -> tuple:
-    """Per-channel demod types from cfg.demod (str or tuple)."""
-    if isinstance(cfg.demod, str):
-        return (cfg.demod,) * cfg.nchan
-    return tuple(cfg.demod)
-
-
-def _am_indices(cfg) -> tuple:
-    return tuple(i for i, d in enumerate(_demod_tuple(cfg)) if d == "am")
 
 
 @functools.lru_cache(maxsize=16)
@@ -125,6 +114,61 @@ class BankConfig:
     def audio_rate(self):
         return self.chan_rate / self.decim2
 
+    @functools.cached_property
+    def plan(self) -> DemodPlan:
+        """The bank's back end (``demod_plan``), derived on first use."""
+        return demod_plan(self)
+
+
+class DemodPlan(NamedTuple):
+    """A bank's back end, decided once from its config by ``demod_plan``:
+    the builds derive it, the steps read it."""
+    demods: tuple   # per-channel demod types
+    route: str      # 'fm', 'am' (envelope), 'cam' (coherent AM), 'ssb' or 'mixed'
+    am_idx: tuple   # the AM channels
+    coherent: bool  # the coherent back end runs on the am_idx rows
+    any_ssb: bool   # some channel is usb / lsb (every one on route 'ssb')
+    deemph: tuple   # float64 (b0, a) of the de-emphasis at the rate it runs
+    warmup: int     # the coherent loops' warmup window
+    chunk: dict     # the coherent loops' chunk by back end ('kernel', 'xla')
+
+
+def demod_plan(cfg) -> DemodPlan:
+    """The plan of a BankConfig or a chains/channelizer.ChannelizedBankConfig
+    (each holds its own as ``cfg.plan``). The families differ as their
+    tpudsp twins do: the receiver bank de-emphasises at the audio rate and
+    adds the squelch countdown to the warmup; the channelized bank
+    de-emphasises at the channel rate with its own tau, and takes the
+    Pallas chunk only while the warmup fits that kernel's cap."""
+    if isinstance(cfg, BankConfig):
+        nchan = cfg.nchan
+        deemph = iirdes.deemphasis_coeffs(cfg.audio_rate)
+        warmup = kwarm.warmup_for(
+            agc_alpha=cfg.agc_bandwidth, pll_bw=kam.PLL_BW,
+            squelch_timeout=cfg.squelch_timeout if cfg.squelch else 0)
+        kernel_chunk = KERNEL_CHUNK
+    else:
+        nchan = cfg.channelizer.nchan
+        deemph = iirdes.deemphasis_coeffs(cfg.channelizer.chan_rate, cfg.deemph_tau)
+        warmup = kwarm.warmup_for(agc_alpha=cfg.agc_bandwidth, pll_bw=kam.PLL_BW)
+        kernel_chunk = (KERNEL_CHUNK if warmup <= kwarm.PALLAS_WARMUP_MAX
+                        else kwarm.chunk_for(warmup))
+    demods = (cfg.demod,) * nchan if isinstance(cfg.demod, str) else tuple(cfg.demod)
+    kinds = set(demods)
+    am_idx = tuple(i for i, d in enumerate(demods) if d == "am")
+    coherent = bool(cfg.am_coherent and am_idx)
+    if kinds == {"fm"}:
+        route = "fm"
+    elif kinds == {"am"}:
+        route = "cam" if coherent else "am"
+    elif kinds <= {"usb", "lsb"}:
+        route = "ssb"
+    else:
+        route = "mixed"
+    return DemodPlan(demods=demods, route=route, am_idx=am_idx, coherent=coherent,
+                     any_ssb=bool(kinds & {"usb", "lsb"}), deemph=deemph, warmup=warmup,
+                     chunk={"kernel": kernel_chunk, "xla": kwarm.chunk_for(warmup)})
+
 
 class BankParams(NamedTuple):
     taps_re: torch.Tensor    # (C, Kc, D1) f32: blocked modulated channel taps (re)
@@ -159,14 +203,12 @@ def build(cfg: BankConfig, input_format: str = "c64", device="cuda"):
     'i16' folds the 1/32767 scale into the modulated taps and keeps the
     shared input tail raw int16; 'u8' (RTL-SDR, (b - 127.5)/127.5) folds
     1/127.5 and keeps a raw uint8 tail started at 127."""
-    if input_format not in INPUT_FORMATS:
-        raise ValueError(f"unknown input_format {input_format!r} "
-                         "(use 'c64', 'i16' or 'u8')")
+    check_format(input_format)
     C = cfg.nchan
-    if not isinstance(cfg.demod, str) and len(cfg.demod) != C:
+    plan = cfg.plan
+    if len(plan.demods) != C:
         raise ValueError("per-channel demod tuple must match freqs")
-    demods = _demod_tuple(cfg)
-    bad = [d for d in demods if d not in ("fm", "am", "usb", "lsb")]
+    bad = [d for d in plan.demods if d not in ("fm", "am", "usb", "lsb")]
     if bad:
         raise ValueError(
             f"unknown demod type(s) {bad!r} (use 'fm'/'am'/'usb'/'lsb')")
@@ -184,16 +226,16 @@ def build(cfg: BankConfig, input_format: str = "c64", device="cuda"):
     taps_im = kdec.plan_phase_taps(hm.imag.astype(np.float32), cfg.decim1)
     h2p = firdes.kaiser_lowpass(cfg.taps2, 0.45 / cfg.decim2, 60.0)[::-1]
     h2 = kdec.plan_phase_taps(h2p[None, :].astype(np.float32), cfg.decim2)[0]
-    b0, a = iirdes.deemphasis_coeffs(cfg.audio_rate)
-    fm_mask = np.array([d == "fm" for d in demods])
-    ssb_mask = np.array([d in ("usb", "lsb") for d in demods])
-    lsb_mask = np.array([d == "lsb" for d in demods])
+    b0, a = plan.deemph
+    fm_mask = np.array([d == "fm" for d in plan.demods])
+    ssb_mask = np.array([d in ("usb", "lsb") for d in plan.demods])
+    lsb_mask = np.array([d == "lsb" for d in plan.demods])
     t = lambda v, dt=torch.float32: torch.tensor(np.asarray(v), dtype=dt, device=device)
     # SSB audio decimator: a half-width lowpass shifted to [0, 0.45/D2]
     # cycles (one-sided, lower edge at the carrier), times 2 for unit
     # message gain; lsb channels conjugate the baseband (lsb_sign)
     h2s_re = h2s_im = lsb_sign = None
-    if ssb_mask.any():
+    if plan.any_ssb:
         fsh2 = 0.225 / cfg.decim2
         k2 = np.arange(cfg.taps2_ssb)
         hs = 2.0 * (firdes.kaiser_lowpass(cfg.taps2_ssb, fsh2, 60.0)
@@ -205,9 +247,8 @@ def build(cfg: BankConfig, input_format: str = "c64", device="cuda"):
         lsb_sign = t(np.where(lsb_mask, -1.0, 1.0))
     dtheta = [int(round((wc % TWO_PI) / TWO_PI * 2**32)) & MASK for wc in w]
     amb = front = dc0 = None
-    am_idx = _am_indices(cfg)
-    if cfg.am_coherent and am_idx:
-        Ca = len(am_idx)
+    if plan.coherent:
+        Ca = len(plan.am_idx)
         amb = kab.make_params(
             kagc.make_params(alpha=cfg.agc_bandwidth, scale=cfg.agc_scale,
                              squelch=cfg.squelch,
@@ -244,7 +285,7 @@ def build(cfg: BankConfig, input_format: str = "c64", device="cuda"):
         a_tail=torch.zeros((C, cfg.taps2 - 1), dtype=torch.float32, device=device),
         deemph=torch.zeros((C,), dtype=torch.float32, device=device),
         front=front, dc=dc0,
-        y1_tail=None if not ssb_mask.any()
+        y1_tail=None if not plan.any_ssb
         else torch.zeros((C, cfg.taps2_ssb - 1), dtype=torch.complex64, device=device),
     )
     return params, state
@@ -290,63 +331,57 @@ def bank_step(params: BankParams, state: BankState, iq, *, cfg: BankConfig,
     launch, 'kernel' (or 'pallas') with the JAX package's Pallas chunk
     (KERNEL_CHUNK), 'xla' with its XLA chunk (warmup.chunk_for)."""
     backend = _check_back_end(False, backend)
-    C = cfg.nchan
+    plan = cfg.plan
     D1, D2 = cfg.decim1, cfg.decim2
     K1, K2 = cfg.taps1, cfg.taps2
     n = iq.shape[0]
 
     # every channel FM: the output rotation and the discriminator are one
     # launch (cuda/bank_rotate) in the demod stage, and y1 is never formed
-    demods = _demod_tuple(cfg)
-    all_fm = all(d == "fm" for d in demods)
     with annotate("bank_step.channelize"):
         # batched mix + channelize -> (C, N/D1) complex, then (but in an
         # all-FM bank) the output rotation e^{-j w_c (n0 + m D1)} from the
         # uint32 phase lattice
         nj1 = n // D1
         y1m = halo_async.cfir(iq, state.in_tail, params.taps_re, params.taps_im, D1, nj1)
-        if not all_fm:
+        if plan.route != "fm":
             theta = phase_lattice(state.phase, state.n0, params.dtheta, D1, nj1)
             y1 = y1m * torch.polar(torch.ones_like(theta), -theta)
 
     with annotate("bank_step.demod"):
-        ssb_any = any(d in ("usb", "lsb") for d in demods)
-        all_ssb = all(d in ("usb", "lsb") for d in demods)
-        if all_fm:
+        if plan.route == "fm":
             base, fd_prev = bank_rotate.fm_base(y1m, state.phase, state.n0, params.dtheta, D1,
                                                 state.fd_prev, cfg.kd)
         else:
-            if cfg.demod == "am":
+            if plan.route == "am":
                 base = torch.abs(y1)
-            elif isinstance(cfg.demod, str) and ssb_any:
+            elif plan.route == "ssb":
                 # the real demod runs below through the one-sided decimator;
                 # this base only keeps the (unused) a_tail carry
                 base = y1.real
-            else:  # mixed bank: every demod computed, selected per channel
+            elif plan.route == "mixed":   # every demod computed, selected per channel
                 base = torch.where(params.fm_mask[:, None],
                                    _fm_base(y1, state.fd_prev, cfg.kd),
                                    torch.where(params.ssb_mask[:, None], y1.real,
                                                torch.abs(y1)))
             fd_prev = y1[:, -1].clone()
 
-        am_idx = _am_indices(cfg)
         front, dc = state.front, state.dc
         sq_modes = None
-        if cfg.am_coherent and am_idx:
+        if plan.coherent:
             # coherent AM channels: AGC + carrier PLL over the Ca streams in one
             # launch, the DC tracker over their rows in another, at the channel
-            # rate, in place of the envelope rows of base
-            idx = _index_tensor(am_idx, y1.device)
-            y_am = y1.index_select(0, idx)
-            w = kwarm.warmup_for(
-                agc_alpha=cfg.agc_bandwidth, pll_bw=kam.PLL_BW,
-                squelch_timeout=cfg.squelch_timeout if cfg.squelch else 0)
-            chunk = KERNEL_CHUNK if backend == "kernel" else kwarm.chunk_for(w)
-            front, (vr, sq_modes) = front_chunked(params.amb, state.front, y_am, chunk, w)
+            # rate (in a mixed bank, in place of the envelope rows of base)
+            y_am = y1
+            if plan.route == "mixed":
+                idx = _index_tensor(plan.am_idx, y1.device)
+                y_am = y1.index_select(0, idx)
+            front, (vr, sq_modes) = front_chunked(params.amb, state.front, y_am,
+                                                  plan.chunk[backend], plan.warmup)
             dc, dct = first_order.first_order_apply_blocked(
                 1.0 - kam.DC_RHO, kam.DC_RHO, state.dc, vr)
             coh = (vr - dct) * params.amb.inv_mod
-            base = coh if len(am_idx) == C else base.index_copy(0, idx, coh)
+            base = base.index_copy(0, idx, coh) if plan.route == "mixed" else coh
 
         # audio decimation: per-channel blocked product with shared taps
         nj2 = nj1 // D2
@@ -356,19 +391,18 @@ def bank_step(params: BankParams, state: BankState, iq, *, cfg: BankConfig,
         # SSB channels: the complex baseband through the one-sided taps, Re
         # taken; lsb channels conjugate it (lsb_sign flips Im)
         y1_tail = state.y1_tail
-        if ssb_any:
+        if plan.any_ssb:
             K2s = cfg.taps2_ssb
             Yf = torch.cat([state.y1_tail, y1], 1)   # (C, K2s-1+N/D1)
             yi = Yf.imag * params.lsb_sign[:, None]
             audio_ssb = (_audio_decimate(Yf.real, params.h2s_re, D2, nj2)
                          - _audio_decimate(yi, params.h2s_im, D2, nj2))
-            audio = audio_ssb if all_ssb else torch.where(
+            audio = audio_ssb if plan.route == "ssb" else torch.where(
                 params.ssb_mask[:, None], audio_ssb, audio)
             y1_tail = Yf[:, -(K2s - 1):]
 
         # de-emphasis over the C rows: one blocked scan (float64 design values)
-        b0_de, a_de = iirdes.deemphasis_coeffs(cfg.audio_rate)
-        deemph, audio = first_order.first_order_apply_blocked(b0_de, a_de, state.deemph, audio)
+        deemph, audio = first_order.first_order_apply_blocked(*plan.deemph, state.deemph, audio)
 
     new_state = BankState(
         in_tail=torch.cat([state.in_tail, iq[-(K1 - 1):]])[-(K1 - 1):],
@@ -421,20 +455,3 @@ class ReceiverBank:
         self.metrics = metrics
         return audio
 
-
-def check_input(iq, input_format: str, device):
-    """iq as a contiguous tensor on ``device``: (N,) complex64, or for
-    'i16' / 'u8' a raw (N, 2) int16 / uint8 block (TypeError otherwise)."""
-    iq = torch.as_tensor(iq, device=device)
-    if input_format in ("i16", "u8"):
-        want = torch.int16 if input_format == "i16" else torch.uint8
-        if iq.dtype != want or iq.ndim != 2 or iq.shape[1] != 2:
-            raise TypeError(
-                f"input_format={input_format!r} expects (N, 2) {want} "
-                f"[re, im]; got {iq.dtype} {tuple(iq.shape)}")
-    else:
-        iq = iq.to(torch.complex64)
-        if iq.ndim != 1:
-            raise TypeError(f"input_format='c64' expects (N,) complex; "
-                            f"got shape {tuple(iq.shape)}")
-    return iq.contiguous()

@@ -39,18 +39,18 @@ import torch
 
 from ..cuda import first_order, pfb
 from ..cuda.am_backend_scan import front_chunked
-from ..design import firdes, iirdes
+from ..design import firdes
 from ..kernels import agc as kagc
 from ..kernels import am_backend as kab
 from ..kernels import ampmodem as kam
 from ..kernels import f32_conv1d
 from ..kernels import pfb as kpfb
-from ..kernels import warmup as kwarm
 from ..kernels.pll import PllState
 from ..utils.profiling import annotate
+from . import bank as cbank
 from . import metrics as kmet
-from .am import INPUT_FORMATS, _check_back_end
-from .bank import KERNEL_CHUNK, _fm_base, _index_tensor, check_input
+from .am import _check_back_end, check_format, check_input
+from .bank import _fm_base, _index_tensor
 from .metrics import BlockMetrics
 
 
@@ -95,9 +95,7 @@ def build(cfg: ChannelizerConfig, input_format: str = "c64", device="cuda"):
     at unity passband gain; 'i16' folds 1/32767 into it and keeps a raw
     int16 tail, 'u8' (RTL-SDR, (b - 127.5)/127.5) folds 1/127.5 and keeps a
     raw uint8 tail started at 127."""
-    if input_format not in INPUT_FORMATS:
-        raise ValueError(f"unknown input_format {input_format!r} "
-                         "(use 'c64', 'i16' or 'u8')")
+    check_format(input_format)
     C, T = cfg.nchan, cfg.taps_per_branch
     h = firdes.kaiser_lowpass(C * T, cfg.cutoff_frac / C, cfg.As)
     h = h / h.sum()
@@ -245,21 +243,11 @@ class ChannelizedBankConfig:
             if bad:
                 raise ValueError(f"unknown demod(s) {bad} (use 'fm'/'am')")
 
-
-def _demod_tuple(cfg: ChannelizedBankConfig):
-    d = cfg.demod
-    return (d,) * cfg.channelizer.nchan if isinstance(d, str) else d
-
-
-def _am_indices(cfg: ChannelizedBankConfig):
-    return tuple(i for i, d in enumerate(_demod_tuple(cfg)) if d == "am")
-
-
-def _is_mixed(cfg: ChannelizedBankConfig):
-    if isinstance(cfg.demod, str):   # one demodulator for every channel
-        return False
-    d = cfg.demod
-    return any(x != d[0] for x in d)
+    @functools.cached_property
+    def plan(self) -> cbank.DemodPlan:
+        """The bank's back end (``chains/bank.demod_plan``), derived on
+        first use."""
+        return cbank.demod_plan(self)
 
 
 def bank_build(cfg: ChannelizedBankConfig, input_format: str = "c64", device="cuda"):
@@ -269,13 +257,13 @@ def bank_build(cfg: ChannelizedBankConfig, input_format: str = "c64", device="cu
     (C,) bool for a mixed bank, else None)."""
     Ht, ch_state = build(cfg.channelizer, input_format, device=device)
     C = cfg.channelizer.nchan
-    b0, a = iirdes.deemphasis_coeffs(cfg.channelizer.chan_rate, cfg.deemph_tau)
+    plan = cfg.plan
+    b0, a = plan.deemph
     front = dc0 = amb = None
-    am_idx = _am_indices(cfg)
-    fm_mask = (None if not _is_mixed(cfg) else
-               torch.tensor([d == "fm" for d in _demod_tuple(cfg)], device=device))
-    if am_idx and cfg.am_coherent:
-        Ca = len(am_idx)
+    fm_mask = (None if plan.route != "mixed" else
+               torch.tensor([d == "fm" for d in plan.demods], device=device))
+    if plan.coherent:
+        Ca = len(plan.am_idx)
         amb = kab.make_params(
             kagc.make_params(alpha=cfg.agc_bandwidth, scale=cfg.agc_scale, device=device),
             cfg.modulation, b0, a, carrier=True)
@@ -304,20 +292,18 @@ def bank_step(params, state: DemodBankState, x, *, cfg: ChannelizedBankConfig,
     'pallas') with the JAX package's Pallas chunk (KERNEL_CHUNK) while the
     warmup fits its cap, 'xla' with its XLA chunk (warmup.chunk_for)."""
     backend = _check_back_end(False, backend)
+    plan = cfg.plan
     Ht, _, _, amb, fm_mask = params
     with annotate("bank_step.channelize"):
         ch_state, Y = _channelize(Ht, state.ch, x, cfg.channelizer.oversample,
                                   cfg.channelizer.engine)   # (M, C)
-    mixed = _is_mixed(cfg)
-    if not mixed and _demod_tuple(cfg)[0] == "fm":
+    if plan.route == "fm":
         # the uniform-FM bank on the channelizer's (M, C) layout: the
         # discriminator and the de-emphasis down the columns in one launch,
         # which writes the audio's (C, M) rows
         with annotate("bank_step.demod"):
-            b0_de, a_de = iirdes.deemphasis_coeffs(cfg.channelizer.chan_rate,
-                                                   cfg.deemph_tau)
             fd_last, deemph, audio = first_order.fm_deemph_cols(
-                b0_de, a_de, cfg.kd, state.fd_prev, state.deemph, Y)
+                *plan.deemph, cfg.kd, state.fd_prev, state.deemph, Y)
         metrics = BlockMetrics(rssi=None, squelch_modes=None, pll_freq=None,
                                resamp_credit=None)
         return (DemodBankState(ch_state, fd_last, deemph, state.front, state.dc),
@@ -326,33 +312,28 @@ def bank_step(params, state: DemodBankState, x, *, cfg: ChannelizedBankConfig,
     fd_prev = Yc[:, -1].clone()
     front, dc = state.front, state.dc
     sq_modes = None
-    am_idx = _am_indices(cfg)
 
     def coherent(y, front0, dc0):
-        w = kwarm.warmup_for(agc_alpha=cfg.agc_bandwidth, pll_bw=kam.PLL_BW)
-        chunk = (KERNEL_CHUNK if backend == "kernel" and w <= kwarm.PALLAS_WARMUP_MAX
-                 else kwarm.chunk_for(w))
-        fr, (vr, modes) = front_chunked(amb, front0, y, chunk, w)
+        fr, (vr, modes) = front_chunked(amb, front0, y, plan.chunk[backend], plan.warmup)
         dc2, dct = first_order.first_order_apply_blocked(
             1.0 - kam.DC_RHO, kam.DC_RHO, dc0, vr)
         return fr, dc2, (vr - dct) * amb.inv_mod, modes
 
     with annotate("bank_step.demod"):
-        b0_de, a_de = iirdes.deemphasis_coeffs(cfg.channelizer.chan_rate, cfg.deemph_tau)
-        if not mixed and cfg.am_coherent:
+        if plan.route == "cam":
             front, dc, base, sq_modes = coherent(Yc, state.front, state.dc)
-        elif not mixed:
+        elif plan.route == "am":
             base = torch.abs(Yc)
         else:
             base = torch.where(fm_mask[:, None], _fm_base(Yc, state.fd_prev, cfg.kd),
                                torch.abs(Yc))
-            if cfg.am_coherent and am_idx:
-                idx = _index_tensor(am_idx, Yc.device)
+            if plan.coherent:
+                idx = _index_tensor(plan.am_idx, Yc.device)
                 front, dc, coh, sq_modes = coherent(Yc.index_select(0, idx), state.front,
                                                     state.dc)
                 base = base.index_copy(0, idx, coh)
         # the de-emphasis over the C rows: one launch
-        deemph, audio = first_order.first_order_apply_blocked(b0_de, a_de, state.deemph,
+        deemph, audio = first_order.first_order_apply_blocked(*plan.deemph, state.deemph,
                                                               base)
     metrics = BlockMetrics(
         rssi=None if front is None else kmet.rssi_db(front.agc.g),

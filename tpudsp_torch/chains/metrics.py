@@ -7,7 +7,7 @@ Fields (None when a chain has no such loop):
 - pll_freq: carrier-recovery loop frequency (rad/sample) at block end.
 - resamp_credit: fractional-sample credit carried by the resampler (0 by
   construction for block lengths that make the output count integral).
-- pilot_level: stereo-pilot amplitude (WBFM stereo chains; not ported yet).
+- pilot_level: stereo-pilot amplitude (the WBFM stereo chain, chains/wbfm.py).
 """
 
 from __future__ import annotations

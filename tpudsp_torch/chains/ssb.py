@@ -11,6 +11,7 @@ c2r_apply``). There is no PLL: the carrier is suppressed.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from fractions import Fraction
 from typing import NamedTuple
@@ -26,7 +27,7 @@ from ..kernels import hilbert as khilb
 from ..kernels import lanes
 from ..kernels import warmup as kwarm
 from . import metrics as kmet
-from .bank import check_input
+from .am import check_input
 from .metrics import BlockMetrics
 
 
@@ -47,6 +48,20 @@ class SSBConfig:
     def rate(self):
         return self.pcm_rate / self.iq_rate
 
+    # the design values the step reads, each derived once from the config
+
+    @functools.cached_property
+    def pq(self) -> tuple:
+        """(P, Q): P outputs per Q inputs."""
+        f = Fraction(self.rate).limit_denominator(10000)
+        return f.numerator, f.denominator
+
+    @functools.cached_property
+    def warmup(self) -> int:
+        """The chunked AGC's warmup window: the AGC is the chain's only
+        feedback loop."""
+        return kwarm.warmup_for(agc_alpha=self.agc_bandwidth)
+
 
 class SSBState(NamedTuple):
     rs_tail: torch.Tensor         # fused front-end input tail (kf,) complex64
@@ -60,11 +75,6 @@ class SSBParams(NamedTuple):
     agc: kagc.AgcParams
 
 
-def _pq(cfg: SSBConfig):
-    f = Fraction(cfg.rate).limit_denominator(10000)
-    return f.numerator, f.denominator
-
-
 def build(cfg: SSBConfig, block_len: int, device="cuda"):
     """(params, init_state, n_out) on ``device`` (the card unless the caller
     asks for the CPU), from the JAX package's float64 host design;
@@ -73,7 +83,7 @@ def build(cfg: SSBConfig, block_len: int, device="cuda"):
     n_out = int(round(n_out_f))
     if abs(n_out_f - n_out) > 1e-9:
         raise ValueError(f"block_len {block_len} * rate {cfg.rate} must be integral")
-    P, Q = _pq(cfg)
+    P, Q = cfg.pq
     # channel filter: a +/- bandwidth lowpass at the input rate (the
     # Hilbert split downstream rejects the mirror)
     h_ch = firdes.kaiser_lowpass(cfg.chan_taps,
@@ -99,17 +109,15 @@ def ssb_step(params: SSBParams, state: SSBState, iq, *, cfg: SSBConfig,
              n_out: int, exact: bool = False):
     """iq: (N,) complex64. Returns (state, (audio (n_out,) f32,
     BlockMetrics))."""
-    P, Q = _pq(cfg)
+    P, Q = cfg.pq
     rs_tail, y48 = kdec.fused_frontend_apply_shared(
         params.taps_fused, state.rs_tail, iq, Q, n_out // P)
-    # the AGC is the chain's only feedback loop: warmup from its bandwidth
     agc = lanes.one_stream(state.agc)
     if exact:
         agc, (z, modes) = agc_scan.agc_exact(params.agc, agc, y48[None])
     else:
-        w = kwarm.warmup_for(agc_alpha=cfg.agc_bandwidth)
         agc, (z, modes) = agc_scan.agc_chunked(params.agc, agc, y48[None],
-                                               kwarm.chunk_for(w), w)
+                                               kwarm.chunk_for(cfg.warmup), cfg.warmup)
     agc = lanes.first_stream(agc)
     c2r, (lower, upper) = khilb.c2r_apply(params.h_hilb, state.c2r, z[0])
     audio = upper if cfg.band == "usb" else lower

@@ -13,6 +13,7 @@ convolutions run in full f32 (TF32 off).
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import NamedTuple
 
@@ -25,7 +26,8 @@ from ..kernels import f32_conv1d
 from ..kernels import freqdem as kfd
 from ..kernels import nco as knco
 from ..kernels import pll as kpll
-from .bank import INPUT_FORMATS, BankConfig, ReceiverBank, check_input
+from .am import check_format, check_input
+from .bank import BankConfig, ReceiverBank
 from .metrics import BlockMetrics
 
 TWO_PI = 2.0 * np.pi
@@ -71,6 +73,12 @@ class StereoConfig:
     taps2: int = 256
     kd: float = 4.0
 
+    @functools.cached_property
+    def deemph(self) -> tuple:
+        """The float64 de-emphasis pair (b0, a) at the composite rate,
+        derived once from the config."""
+        return iirdes.deemphasis_coeffs(self.iq_rate / self.decim1)
+
 
 def _dec_audio(h2, D2: int, tail, xs):
     """The 600k -> 48k decimation of rows xs (R, n) with carried tails (R,
@@ -105,9 +113,8 @@ def _stereo_step(params: StereoParams, state: StereoState, iq, *, cfg: StereoCon
         state.pilot, s, params.dtheta_u, with_metrics=True)
     aud_tail, (left, right) = kpll.stereo_matrix_lowpass(params.h_aud, state.aud_tail, s, lr)
     # de-emphasis at the composite rate: both channels in one blocked scan
-    b0_de, a_de = iirdes.deemphasis_coeffs(cfg.iq_rate / cfg.decim1)
     d_last, lr_de = first_order.first_order_apply_blocked(
-        b0_de, a_de, torch.stack([state.dl, state.dr]), torch.stack([left, right]))
+        *cfg.deemph, torch.stack([state.dl, state.dr]), torch.stack([left, right]))
     tails, pcm = _dec_audio(params.h2, cfg.decim2,
                             torch.stack([state.a_tail_l, state.a_tail_r]), lr_de)
     new_state = StereoState(X[-state.in_tail.shape[0]:].clone(), fd_prev, pilot,
@@ -121,9 +128,7 @@ def _stereo_step(params: StereoParams, state: StereoState, iq, *, cfg: StereoCon
 def stereo_build(cfg: StereoConfig, input_format: str = "c64", device="cuda"):
     """(StereoParams, StereoState) on ``device`` from the JAX package's
     float64 host design; the wire scale folds into the channel lowpass."""
-    if input_format not in INPUT_FORMATS:
-        raise ValueError(f"unknown input_format {input_format!r} "
-                         "(use 'c64', 'i16' or 'u8')")
+    check_format(input_format)
     comp_rate = cfg.iq_rate / cfg.decim1       # 600 k
     h1 = firdes.kaiser_lowpass(cfg.taps1, 0.45 / cfg.decim1, 60.0)[::-1]
     h1 = h1 * {"c64": 1.0, "i16": 1.0 / 32767.0, "u8": 1.0 / 127.5}[input_format]
@@ -136,7 +141,7 @@ def stereo_build(cfg: StereoConfig, input_format: str = "c64", device="cuda"):
     proto = firdes.kaiser_lowpass(L, 21600.0 / comp_rate, 60.0)
     proto_half = firdes.kaiser_lowpass(L, 21600.0 / comp_rate, 60.0, mu=0.5)
     h2 = np.stack([proto[::-1], proto_half[::-1]]).astype(np.float32)
-    b0, aa = iirdes.deemphasis_coeffs(comp_rate)
+    b0, aa = cfg.deemph
     h_aud = firdes.stereo_audio_lowpass(comp_rate)
     f32 = lambda v: torch.tensor(np.asarray(v, np.float32), device=device)
     params = StereoParams(f32(h1), f32(h2), f32(h_aud),

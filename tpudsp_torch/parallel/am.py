@@ -36,9 +36,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..chains.am import AMConfig, INPUT_FORMATS, _rational, build as am_build
+from ..chains.am import AMConfig, build as am_build, check_format, check_input
 from ..cuda import halo_async
-from ..design import iirdes
 from ..kernels import agc as kagc
 from ..kernels import am_backend as kab
 from ..kernels import ampmodem as kam
@@ -121,13 +120,11 @@ class ShardedAMReceiver(nn.Module):
         if halo not in ("ppermute", "async"):
             raise ValueError(f"unknown halo {halo!r} "
                              "(use 'ppermute' or 'async')")
-        if input_format not in INPUT_FORMATS:
-            raise ValueError(f"unknown input_format {input_format!r} "
-                             "(use 'c64', 'i16' or 'u8')")
+        check_format(input_format)
         if input_format != "c64" and halo == "async":
             raise ValueError("halo='async' runs the complex64 ring kernel; "
                              "wire-format ingest uses halo='ppermute'")
-        pq = _rational(cfg.rate)
+        pq = cfg.pq
         if pq is None:
             raise ValueError("time sharding needs a rational rate "
                              "(fused front end)")
@@ -153,7 +150,7 @@ class ShardedAMReceiver(nn.Module):
 
         params, st0, self.n_out = am_build(cfg, self.block_len, input_format,
                                            device=device)
-        de_b0, de_a = iirdes.deemphasis_coeffs(cfg.pcm_rate)
+        de_b0, de_a = cfg.deemph
         self._amb = kab.make_params(params.agc, cfg.modulation, de_b0, de_a,
                                     carrier=cfg.carrier)
         if halo == "async":
@@ -179,24 +176,13 @@ class ShardedAMReceiver(nn.Module):
         return self.state.dc.device
 
     def forward(self, iq):
-        iq = torch.as_tensor(iq)
-        if self.input_format in ("i16", "u8"):
-            want = torch.int16 if self.input_format == "i16" else torch.uint8
-            if iq.dtype != want or iq.ndim != 2 or iq.shape[1] != 2:
-                raise TypeError(
-                    f"input_format={self.input_format!r} expects (N, 2) "
-                    f"{want} [re, im]; got {iq.dtype} {tuple(iq.shape)}")
-        elif iq.ndim != 1:
-            raise TypeError(f"input_format='c64' expects (N,) complex; "
-                            f"got shape {tuple(iq.shape)}")
+        iq = check_input(iq, self.input_format, None)
         if iq.shape[0] != self.block_len:
             raise ValueError(f"expected block of {self.block_len} samples")
         r = self.mesh.get_local_rank(TIME_AXIS)
         iq_loc = iq[r * self.n_loc:(r + 1) * self.n_loc].to(self.device)
-        if self.input_format == "c64":
-            iq_loc = iq_loc.to(torch.complex64)
         state, pcm = _sharded_am_step(self.taps, self._amb, self.state,
-                                      iq_loc.contiguous(), self.mesh,
+                                      iq_loc, self.mesh,
                                       **self._step_kw)
         self.state = broadcast_from_last(state, self.mesh)
         return all_gather(pcm, self.mesh).reshape(-1)

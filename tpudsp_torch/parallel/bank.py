@@ -30,15 +30,14 @@ import torch
 import torch.distributed as dist
 
 from ..chains import bank as cbank
-from ..chains.am import INPUT_FORMATS
+from ..chains.am import check_format, check_input
 from ..chains.bank import BankConfig, BankParams, BankState
 from ..cuda import am_backend_scan as scan
 from ..cuda import first_order, halo_async
-from ..design import iirdes
 from ..kernels import iir as kiir
 from ..kernels import lanes
-from ..kernels.ampmodem import DC_RHO, PLL_BW
-from ..kernels.warmup import chunk_for, warmup_for
+from ..kernels.ampmodem import DC_RHO
+from ..kernels.warmup import chunk_for
 from ..utils.profiling import annotate
 from .halo import left_halo, left_halo_rows
 from .mesh import CHANNEL_AXIS, TIME_AXIS, axis_size
@@ -149,11 +148,6 @@ def _left_halo_1d(x_local, halo: int, mesh, fill):
     return left_halo(x_local, halo, mesh, fill)
 
 
-def _coherent_warmup(cfg: BankConfig) -> int:
-    return warmup_for(agc_alpha=cfg.agc_bandwidth, pll_bw=PLL_BW,
-                      squelch_timeout=cfg.squelch_timeout if cfg.squelch else 0)
-
-
 def sharded_bank_step(params: BankParams, state: BankState, iq, mesh, *,
                       cfg: BankConfig, halo: str = "ppermute",
                       coherent_mode: str | None = None, am_idx: tuple = ()):
@@ -173,6 +167,7 @@ def sharded_bank_step(params: BankParams, state: BankState, iq, mesh, *,
     AM rows alone; 'all' (the channel axis is sharded, so the local AM
     rows are not known in advance) runs it on every local row and selects
     the AM rows by mask, with state.front and state.dc sized C."""
+    plan = cfg.plan
     D1, D2 = cfg.decim1, cfg.decim2
     K1, K2 = cfg.taps1, cfg.taps2
     n_loc = iq.shape[0]
@@ -195,35 +190,31 @@ def sharded_bank_step(params: BankParams, state: BankState, iq, mesh, *,
         prev = _left_halo_1d(y1, 1, mesh, state.fd_prev[:, None])
         return cbank._fm_base(y1, prev[:, 0], cfg.kd)
 
-    demods = cbank._demod_tuple(cfg)
-    ssb_any = any(d in ("usb", "lsb") for d in demods)
-    all_ssb = all(d in ("usb", "lsb") for d in demods)
     front, dc = state.front, state.dc
-    if cfg.demod == "fm":
+    if plan.route == "fm":
         base = fm_base()
-    elif cfg.demod == "am":
-        if cfg.am_coherent:
-            front, dc, base = coherent_am_time_sharded(
-                params.amb, state.front, state.dc, y1, _coherent_warmup(cfg), mesh)
-        else:
-            base = torch.abs(y1)
-    elif isinstance(cfg.demod, str) and ssb_any:
+    elif plan.route == "cam":
+        front, dc, base = coherent_am_time_sharded(
+            params.amb, state.front, state.dc, y1, plan.warmup, mesh)
+    elif plan.route == "am":
+        base = torch.abs(y1)
+    elif plan.route == "ssb":
         # the real demod is the one-sided decimator below; this base only
         # keeps the a_tail carry
         base = y1.real
     else:   # mixed bank: every demod computed, selected per channel
         base = torch.where(params.fm_mask[:, None], fm_base(),
                            torch.where(params.ssb_mask[:, None], y1.real, torch.abs(y1)))
-        if cfg.am_coherent and coherent_mode is not None:
-            w = _coherent_warmup(cfg)
+        if plan.coherent and coherent_mode is not None:
             if coherent_mode == "gather":
                 idx = cbank._index_tensor(am_idx, y1.device)
                 front, dc, coh = coherent_am_time_sharded(
-                    params.amb, state.front, state.dc, y1.index_select(0, idx), w, mesh)
+                    params.amb, state.front, state.dc, y1.index_select(0, idx), plan.warmup,
+                    mesh)
                 base = base.index_copy(0, idx, coh)
             else:   # 'all': the coherent back end on every row, AM rows kept
                 front, dc, coh = coherent_am_time_sharded(
-                    params.amb, state.front, state.dc, y1, w, mesh)
+                    params.amb, state.front, state.dc, y1, plan.warmup, mesh)
                 am_mask = ~(params.fm_mask | params.ssb_mask)
                 base = torch.where(am_mask[:, None], coh, base)
     fd_prev = y1[:, -1].clone()
@@ -233,18 +224,17 @@ def sharded_bank_step(params: BankParams, state: BankState, iq, mesh, *,
     audio = cbank._audio_decimate(A, params.h2, D2, nj2)
 
     y1_tail = state.y1_tail
-    if ssb_any:
+    if plan.any_ssb:
         K2s = cfg.taps2_ssb
         Yf = torch.cat([_left_halo_1d(y1, K2s - 1, mesh, state.y1_tail), y1], 1)
         yi = Yf.imag * params.lsb_sign[:, None]
         audio_ssb = (cbank._audio_decimate(Yf.real, params.h2s_re, D2, nj2)
                      - cbank._audio_decimate(yi, params.h2s_im, D2, nj2))
-        audio = audio_ssb if all_ssb else torch.where(
+        audio = audio_ssb if plan.route == "ssb" else torch.where(
             params.ssb_mask[:, None], audio_ssb, audio)
         y1_tail = Yf[:, -(K2s - 1):].clone()
 
-    b0_de, a_de = iirdes.deemphasis_coeffs(cfg.audio_rate)
-    deemph, audio = _first_order_time_sharded_blocked(b0_de, a_de, state.deemph, audio, mesh)
+    deemph, audio = _first_order_time_sharded_blocked(*plan.deemph, state.deemph, audio, mesh)
 
     new_state = BankState(
         in_tail=torch.cat([halo_in, iq[-(K1 - 1):]])[-(K1 - 1):],
@@ -309,9 +299,7 @@ class ShardedBank:
                  input_format: str = "c64", *, device="cuda"):
         if halo not in ("ppermute", "async"):
             raise ValueError(f"unknown halo {halo!r} (use 'ppermute' or 'async')")
-        if input_format not in INPUT_FORMATS:
-            raise ValueError(f"unknown input_format {input_format!r} "
-                             "(use 'c64', 'i16' or 'u8')")
+        check_format(input_format)
         D = cfg.decim1 * cfg.decim2
         n_time = axis_size(mesh, TIME_AXIS)
         n_chan = axis_size(mesh, CHANNEL_AXIS)
@@ -334,18 +322,18 @@ class ShardedBank:
         self.n_loc = self.block_len // n_time
         # a mixed bank's coherent channels: the AM rows alone when the
         # channels are local to every rank, else every row and a mask
-        self.coherent_mode = None
-        if cfg.am_coherent and cbank._am_indices(cfg) and cfg.demod != "am":
-            self.coherent_mode = "gather" if n_chan == 1 else "all"
-        if self.coherent_mode == "all":
+        coherent_mode = None
+        if cfg.plan.route == "mixed" and cfg.plan.coherent:
+            coherent_mode = "gather" if n_chan == 1 else "all"
+        if coherent_mode == "all":
             # every channel row carries a front and a DC tracker
             C = cfg.nchan
             state = state._replace(
                 front=lanes.tree_map(lambda v: v[:1].expand(C).contiguous(), state.front),
                 dc=torch.zeros((C,), dtype=torch.float32, device=device))
         self.params, self.state = channel_slice(params, state, mesh)
-        self._step_kw = dict(cfg=cfg, halo=halo, coherent_mode=self.coherent_mode,
-                             am_idx=cbank._am_indices(cfg))
+        self._step_kw = dict(cfg=cfg, halo=halo, coherent_mode=coherent_mode,
+                             am_idx=cfg.plan.am_idx)
 
     @property
     def device(self) -> torch.device:
@@ -356,7 +344,7 @@ class ShardedBank:
         if iq.shape[0] != self.block_len:
             raise ValueError(f"expected block of {self.block_len} samples")
         t = self.mesh.get_local_rank(TIME_AXIS)
-        iq_loc = cbank.check_input(iq[t * self.n_loc:(t + 1) * self.n_loc],
+        iq_loc = check_input(iq[t * self.n_loc:(t + 1) * self.n_loc],
                                    self.input_format, self.device)
         with annotate("ShardedBank.step"):
             state, audio = sharded_bank_step(self.params, self.state, iq_loc, self.mesh,

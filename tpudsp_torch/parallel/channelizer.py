@@ -43,17 +43,15 @@ import torch
 import torch.distributed as dist
 
 from ..chains import channelizer as cch
-from ..chains.am import INPUT_FORMATS
-from ..chains.bank import _fm_base, check_input
+from ..chains.am import check_format, check_input
+from ..chains.bank import _fm_base
 from ..chains.channelizer import ChannelizedBankConfig, ChannelizerConfig
 from ..cuda import first_order, pfb
 from ..cuda.am_backend_scan import front_chunked
-from ..design import iirdes
 from ..kernels import agc as kagc
 from ..kernels import am_backend as kab
 from ..kernels import ampmodem as kam
 from ..kernels import lanes
-from ..kernels import warmup as kwarm
 from ..kernels.pll import PllState
 from ..utils.profiling import annotate
 from .bank import all_gather
@@ -177,9 +175,7 @@ class ShardedChannelizer:
                 f"PFB accumulation only; engine={cfg.engine!r} would be "
                 "silently mis-measured (use chains.channelizer for the "
                 "conv engine, or engine='shift' here)")
-        if input_format not in INPUT_FORMATS:
-            raise ValueError(f"unknown input_format {input_format!r} "
-                             "(use 'c64', 'i16' or 'u8')")
+        check_format(input_format)
         if axis_name is None:
             axis_name = mesh.mesh_dim_names[0]
         n = axis_size(mesh, axis_name)
@@ -259,38 +255,36 @@ def tp_bank_shard(params, state: TPBankState, x_loc, mesh, *,
     included) runs with no further communication. params: (Ht, tw, b0, a,
     amb, fm_mask); fm_mask, for a mixed bank, is this rank's (C1/n, C2)
     slice in layout order. Returns (state, audio (C1/n, C2, M))."""
+    plan = cfg.plan
     Ht, tw, _, _, amb, fm_mask = params
     Y = tp_channelize_shard(Ht, tw, state.tail, x_loc, mesh, C1=C1, C2=C2,
                             axis_name=axis_name, os=cfg.channelizer.oversample)
     M, c1_loc, c2 = Y.shape
     c_loc = c1_loc * c2
     Ymc = Y.reshape(M, c_loc)                      # frames x this rank's channels
-    b0_de, a_de = iirdes.deemphasis_coeffs(cfg.channelizer.chan_rate, cfg.deemph_tau)
-    mixed = cch._is_mixed(cfg)
     front, dc = state.front, state.dc
-    if not mixed and cch._demod_tuple(cfg)[0] == "fm":
+    if plan.route == "fm":
         # the uniform-FM bank on the (M, c_loc) columns, as the single-card
         # bank runs it: the discriminator and the de-emphasis in one launch
         fd_last, deemph, audio = first_order.fm_deemph_cols(
-            b0_de, a_de, cfg.kd, state.fd_prev.reshape(c_loc), state.deemph.reshape(c_loc),
+            *plan.deemph, cfg.kd, state.fd_prev.reshape(c_loc), state.deemph.reshape(c_loc),
             Ymc.contiguous())
     else:
         fd_last = Y[-1].clone()
         Yc = Ymc.T.contiguous()                    # (c_loc, M)
 
         def coherent():
-            w = kwarm.warmup_for(agc_alpha=cfg.agc_bandwidth, pll_bw=kam.PLL_BW)
             fr, (vr, _modes) = front_chunked(
                 amb, lanes.tree_map(lambda v: v.reshape(c_loc), state.front), Yc,
-                kwarm.chunk_for(w), w)
+                plan.chunk["xla"], plan.warmup)
             dc2, dct = first_order.first_order_apply_blocked(
                 1.0 - kam.DC_RHO, kam.DC_RHO, state.dc.reshape(c_loc), vr)
             return (lanes.tree_map(lambda v: v.reshape(c1_loc, c2), fr),
                     dc2.reshape(c1_loc, c2), (vr - dct) * amb.inv_mod)
 
-        if not mixed and cfg.am_coherent:
+        if plan.route == "cam":
             front, dc, base = coherent()
-        elif not mixed:
+        elif plan.route == "am":
             base = torch.abs(Yc)
         else:
             # mixed: the local AM rows are not known in advance, so the
@@ -299,11 +293,11 @@ def tp_bank_shard(params, state: TPBankState, x_loc, mesh, *,
             m = fm_mask.reshape(c_loc, 1)
             base = torch.where(m, _fm_base(Yc, state.fd_prev.reshape(c_loc), cfg.kd),
                                torch.abs(Yc))
-            if cfg.am_coherent and cch._am_indices(cfg):
+            if plan.coherent:
                 front, dc, coh = coherent()
                 base = torch.where(m, base, coh)
         deemph, audio = first_order.first_order_apply_blocked(
-            b0_de, a_de, state.deemph.reshape(c_loc), base)
+            *plan.deemph, state.deemph.reshape(c_loc), base)
     new_state = TPBankState(tail=state.tail, fd_prev=fd_last.reshape(c1_loc, c2),
                             deemph=deemph.reshape(c1_loc, c2), front=front, dc=dc)
     return new_state, audio.reshape(c1_loc, c2, M)
@@ -337,13 +331,14 @@ class ShardedChannelizedBank:
         r = mesh.get_local_rank(self.axis_name)
         rows = slice(r * (self.C1 // n), (r + 1) * (self.C1 // n))
         shp = (self.C1 // n, self.C2)
-        b0, a = iirdes.deemphasis_coeffs(ccfg.chan_rate, cfg.deemph_tau)
+        plan = cfg.plan
+        b0, a = plan.deemph
         fm_mask = amb = front0 = dc0 = None
-        if cch._is_mixed(cfg):
-            nat = np.asarray([d == "fm" for d in cch._demod_tuple(cfg)])
+        if plan.route == "mixed":
+            nat = np.asarray([d == "fm" for d in plan.demods])
             fm_mask = torch.tensor(nat[self.layout_perm].reshape(self.C1, self.C2)[rows],
                                    device=device)
-        if cfg.am_coherent and cch._am_indices(cfg):
+        if plan.coherent:
             amb = kab.make_params(
                 kagc.make_params(alpha=cfg.agc_bandwidth, scale=cfg.agc_scale,
                                  device=device),

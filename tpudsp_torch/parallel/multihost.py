@@ -25,12 +25,9 @@ import torch
 import torch.distributed as dist
 
 from ..chains import channelizer as cch
-from ..chains.am import INPUT_FORMATS
-from ..chains.bank import _fm_base, _index_tensor, check_input
+from ..chains.am import check_format, check_input
+from ..chains.bank import _fm_base, _index_tensor
 from ..chains.channelizer import ChannelizedBankConfig, ChannelizerState, DemodBankState
-from ..design import iirdes
-from ..kernels import ampmodem as kam
-from ..kernels.warmup import warmup_for
 from ..utils.profiling import annotate
 from .bank import (_first_order_time_sharded_blocked, all_gather, broadcast_from_last,
                    coherent_am_time_sharded)
@@ -90,38 +87,35 @@ def scanner_step(params, state: DemodBankState, x_local, mesh, *,
     de-emphasis across time ranks). params: (Ht, b0, a, amb, fm_mask) as
     ``chains/channelizer.bank_build`` makes them. Returns (this rank's
     state after the block, its audio (C, M_loc))."""
+    plan = cfg.plan
     Ht, _, _, amb, fm_mask = params
     halo = left_halo_rows(x_local, state.ch.tail.shape[0], mesh, state.ch.tail)
     new_tail, Y = _channelize_local(Ht, halo, x_local, os=cfg.channelizer.oversample)
     Yc = Y.T.contiguous()                                   # (C, M_loc)
     front, dc = state.front, state.dc
-    mixed = cch._is_mixed(cfg)
 
     def fm_base():
         prev = left_halo(Yc, 1, mesh, state.fd_prev[:, None])
         return _fm_base(Yc, prev[:, 0], cfg.kd)
 
     def coherent(y):
-        w = warmup_for(agc_alpha=cfg.agc_bandwidth, pll_bw=kam.PLL_BW)
-        return coherent_am_time_sharded(amb, state.front, state.dc, y, w, mesh)
+        return coherent_am_time_sharded(amb, state.front, state.dc, y, plan.warmup, mesh)
 
-    if not mixed and cch._demod_tuple(cfg)[0] == "fm":
+    if plan.route == "fm":
         base = fm_base()
-    elif not mixed and cfg.am_coherent:
+    elif plan.route == "cam":
         front, dc, base = coherent(Yc)
-    elif not mixed:
+    elif plan.route == "am":
         base = torch.abs(Yc)
     else:
         # mixed: the channels are local to every time rank, so the coherent
         # back end takes its AM rows alone
         base = torch.where(fm_mask[:, None], fm_base(), torch.abs(Yc))
-        am_idx = cch._am_indices(cfg)
-        if cfg.am_coherent and am_idx:
-            idx = _index_tensor(am_idx, Yc.device)
+        if plan.coherent:
+            idx = _index_tensor(plan.am_idx, Yc.device)
             front, dc, coh = coherent(Yc.index_select(0, idx))
             base = base.index_copy(0, idx, coh)
-    b0_de, a_de = iirdes.deemphasis_coeffs(cfg.channelizer.chan_rate, cfg.deemph_tau)
-    deemph, audio = _first_order_time_sharded_blocked(b0_de, a_de, state.deemph, base, mesh)
+    deemph, audio = _first_order_time_sharded_blocked(*plan.deemph, state.deemph, base, mesh)
     new_state = DemodBankState(ch=ChannelizerState(tail=new_tail), fd_prev=Yc[:, -1].clone(),
                                deemph=deemph, front=front, dc=dc)
     return new_state, audio
@@ -147,9 +141,7 @@ class ShardedScanner:
                 f"PFB accumulation only; engine={cfg.channelizer.engine!r} "
                 "would be silently mis-measured (use chains.channelizer "
                 "for the conv engine, or engine='shift' here)")
-        if input_format not in INPUT_FORMATS:
-            raise ValueError(f"unknown input_format {input_format!r} "
-                             "(use 'c64', 'i16' or 'u8')")
+        check_format(input_format)
         C = cfg.channelizer.nchan
         n_time = axis_size(mesh, TIME_AXIS)
         if block_len % (C * n_time):

@@ -34,8 +34,8 @@ from typing import NamedTuple
 
 import torch
 
-from ..chains.am import (AMConfig, AMParams, AMState, INPUT_FORMATS, _back_end,
-                         _check_back_end, _rational, build)
+from ..chains.am import (AMConfig, AMParams, AMState, _back_end, _check_back_end, build,
+                         check_format, check_input)
 from ..kernels import decimate as kdec
 from ..kernels import lanes
 from ..utils.profiling import annotate
@@ -96,7 +96,7 @@ def pipeline_step(params, state: AMPipeState, iq, valid: bool, *, cfg: AMConfig,
     gain up before the first real block arrives). Returns (state, block
     t-1's pcm on stage 1's device, or None on the fill call)."""
     s0, s1 = stages
-    P, Q = _rational(cfg.rate)
+    P, Q = cfg.pq
     pcm = None
     agc, am, deemph = state.agc, state.am, state.deemph
     with _on(s1):
@@ -133,11 +133,9 @@ class PipelinedAMReceiver:
     def __init__(self, cfg: AMConfig = AMConfig(), block_len: int = 1_000_000,
                  mesh=None, exact: bool = False, backend: str = "xla",
                  input_format: str = "c64"):
-        if _rational(cfg.rate) is None:
+        if cfg.pq is None:
             raise ValueError("pipelined receiver needs a rational rate")
-        if input_format not in INPUT_FORMATS:
-            raise ValueError(f"unknown input_format {input_format!r} "
-                             "(use 'c64', 'i16' or 'u8')")
+        check_format(input_format)
         self.cfg = cfg
         self.block_len = int(block_len)
         self.input_format = input_format
@@ -178,18 +176,7 @@ class PipelinedAMReceiver:
         self._fed = 0
 
     def _input(self, iq):
-        iq = torch.as_tensor(iq)
-        if self.input_format in ("i16", "u8"):
-            want = torch.int16 if self.input_format == "i16" else torch.uint8
-            if iq.dtype != want or iq.ndim != 2 or iq.shape[1] != 2:
-                raise TypeError(
-                    f"input_format={self.input_format!r} expects (N, 2) "
-                    f"{want} [re, im]; got {iq.dtype} {tuple(iq.shape)}")
-        else:
-            iq = iq.to(torch.complex64)
-            if iq.ndim != 1:
-                raise TypeError(f"input_format='c64' expects (N,) complex; "
-                                f"got shape {tuple(iq.shape)}")
+        iq = check_input(iq, self.input_format, None)
         if iq.shape[0] != self.block_len:
             raise ValueError(f"expected block of {self.block_len} samples")
         s0 = self.stages[0]
