@@ -31,7 +31,21 @@ fails:
                 callback's length, the sharded receiver's 3840-sample
                 entry scan from a carried state, and PLL states and a loop
                 gain that take the PLL warp's unbounded instance (theta
-                outside [-pi, pi], the wrap's fmodf path);
+                outside [-pi, pi], the wrap's fmodf path); its matrix
+                instance (front_chunked_mc: the channelizer's (M, C) matrix
+                read in place, the rows written) bit for bit against the
+                planes launch at the coherent channelized bank's shape
+                (1024 x 16384, chunk = warmup = 3840: 5 chunks, the last
+                padded by 2816, and the exact re-run of the tail) and at
+                1000 channels with PLL states that take the unbounded
+                instance, and against its plain version at 40 channels;
+                the rows linear tail (one linear_tail_scan launch over
+                1024 rows of 16384) against the DC tracker's row scan, the
+                eager audio line and the de-emphasis row scan it replaced
+                (>= 120 dB; bit-equality logged); the coherent bank's
+                launches a block (cam's backend 'xla': 2 of the matrix
+                instance, 1 rows tail); both timed against the forms they
+                replaced in phase 10;
               agc_scan: one 4,000,000-sample block on the Pallas route
                 (chunk 1024, warmup 3840: 3907 lanes, ragged last chunk),
                 the same block on the XLA route (chunk = warmup = 3840), a
@@ -174,7 +188,8 @@ fails:
               of the i16 / u8 values) on three blocks, os = 2 and the 'conv'
               engine, envelope AM, coherent AM on all 1024 channels and a
               mixed fm / coherent am bank (backend 'kernel', the coherent
-              launch bit for bit against front_chunked_ref). Y of the 16
+              launch bit for bit against its plain version:
+              front_chunked_mc_ref, front_chunked_ref). Y of the 16
               carriers' channels against the float64 oracle
               (tests/oracle/bank_oracle.channelizer_f64, >= 120 dB), the FM
               audio against its discriminator and de-emphasis (>= 100),
@@ -264,7 +279,8 @@ first_order_scan 1 more, stereo
 first_order_scan 1 and first_order_scan_c64 2, SSB agc_scan 2 chunked
 and 1 exact; in phase 10 pfb_branch 1 a block but for the 'conv' engine,
 the FM bank fm_deemph_cols 1, envelope AM first_order_scan 1,
-coherent and mixed am_front_scan 1 and first_order_scan 2; in phase 11
+coherent am_front_scan 1 (its matrix instance) and first_order_scan 1,
+mixed am_front_scan 1 and first_order_scan 2; in phase 11
 am_front_scan 1 and first_order_scan 1 a block for AM, halo_async 1,
 bank_rotate 1 and first_order_scan 1 for bank16, pfb_branch 1 and fm_deemph_cols 1 for
 config 4, all but the two runtimes at once; in phase 11 the sharded bank
@@ -705,6 +721,150 @@ def kernel_front():
     return x, xc
 
 
+def kernel_front_mc():
+    """am_front_scan's matrix instance (cuda/am_backend_scan.front_chunked_mc):
+    bit for bit against the planes launch of the transpose at the coherent
+    channelized bank's shape and at 1000 channels (some of whose PLL states
+    take the unbounded instance), and against its plain version at 40
+    channels; each call's launches of each instance. Then the rows linear
+    tail against the parent's two row scans and eager line, and the
+    coherent bank's launches a block. Leaves the cam-shape inputs for
+    ``time_front_mc`` (the channelizer phase: its profiler windows come
+    after the receivers phase's, which opens the process's first)."""
+    import torch
+    from tpudsp_torch.chains.channelizer import ChannelizedBankConfig, bank_build
+    from tpudsp_torch.cuda import am_backend_scan as scan
+    from tpudsp_torch.cuda import first_order as fo
+    from tpudsp_torch.kernels.pll import PllState
+    cfg = ChannelizedBankConfig(demod="am", am_coherent=True)
+    (_, _, _, amb, _), st0 = bank_build(cfg, device=DEV)
+    chunk, warmup = cfg.plan.chunk["xla"], cfg.plan.warmup
+    M, C = N_PFB // 1024, 1024
+    g = torch.Generator(device=DEV).manual_seed(61)
+    t = torch.arange(M, device=DEV, dtype=torch.float64)[:, None]
+    f = (torch.rand(C, generator=g, device=DEV, dtype=torch.float64) - 0.5) * 4e-3
+    fm = 5e-3 + torch.rand(C, generator=g, device=DEV, dtype=torch.float64) * 1.5e-2
+    amp = 10 ** (-3 * torch.rand(C, generator=g, device=DEV, dtype=torch.float64))
+    Y = (amp * (1 + 0.5 * torch.sin(2 * np.pi * fm * t)) * torch.exp(2j * np.pi * f * t)
+         + 1e-3 * torch.randn(M, C, generator=g, device=DEV, dtype=torch.complex128))
+    Y = Y.to(torch.complex64)
+    settled = PllState(((torch.rand(C, generator=g, device=DEV) - 0.5) * 2 * np.pi).float(),
+                       ((torch.rand(C, generator=g, device=DEV) - 0.5) * 1e-3).float())
+
+    def held(name, st, Yk, ch, wu, per_call):
+        before = (scan._launch.launches, scan._launch.matrix)
+        got = scan.front_chunked_mc(amb, st, Yk, ch, wu)
+        torch.cuda.synchronize()
+        counts = (scan._launch.launches - before[0], scan._launch.matrix - before[1])
+        log(f"kernel[{name}]: launches (all, matrix) {counts}, expected {per_call}")
+        if counts != per_call:
+            raise AssertionError(f"kernel[{name}]: launches {counts}, not {per_call}")
+        return got
+
+    for name, st in (("bank state", st0.front), ("settled PLL", st0.front._replace(pll=settled))):
+        label = f"am_front_scan matrix C={C} L={M} chunk {chunk} warmup {warmup} {name}"
+        got = held(label, st, Y, chunk, warmup, (2, 2))
+        _compare(f"{label} vs the planes launch", got,
+                 scan.front_chunked(amb, st, Y.T.contiguous(), chunk, warmup))
+    # 1000 channels (the last group of each chunk partly idle): every 7th
+    # stream from theta = 20 (fmodf on its first step), every 11th at freq
+    # = -9 (its groups' stages unbounded)
+    Yk = Y[:, :1000].contiguous()
+    k = torch.arange(1000, device=DEV)
+    wild = PllState(torch.where(k % 7 == 3, 20.0, settled.theta[:1000]),
+                    torch.where(k % 11 == 5, -9.0, settled.freq[:1000]))
+    st = scan.FrontState(scan.AgcState(*(v[:1000].contiguous() for v in st0.front.agc)), wild)
+    label = f"am_front_scan matrix C=1000 L={M} chunk {chunk} warmup {warmup} unbounded PLL"
+    _compare(f"{label} vs the planes launch", held(label, st, Yk, chunk, warmup, (2, 2)),
+             scan.front_chunked(amb, st, Yk.T.contiguous(), chunk, warmup))
+    # against its plain version: 40 channels, chunk 1000, warmup 2500, a
+    # padded last chunk; and the exact route
+    Ys = Y[:3900, :40].contiguous()
+    st = scan.FrontState(scan.AgcState(*(v[:40].contiguous() for v in st0.front.agc)),
+                         PllState(settled.theta[:40].contiguous(),
+                                  settled.freq[:40].contiguous()))
+    _compare("am_front_scan matrix C=40 L=3900 chunk 1000 warmup 2500 vs its plain version",
+             held("am_front_scan matrix C=40 L=3900", st, Ys, 1000, 2500, (2, 2)),
+             scan.front_chunked_mc_ref(amb, st, Ys, 1000, 2500))
+    _compare("am_front_scan matrix C=40 L=3000 exact vs its plain version",
+             held("am_front_scan matrix C=40 L=3000", st, Ys[:3000].contiguous(), 1000, 2500,
+                  (1, 1)),
+             scan.front_chunked_mc_ref(amb, st, Ys[:3000].contiguous(), 1000, 2500))
+
+    # the rows tail: one launch against the parent's form
+    _, (vr, _) = scan.front_chunked_mc(amb, st0.front, Y, chunk, warmup)
+    dc0 = (torch.rand(C, generator=g, device=DEV) * 0.1).float()
+    de0 = ((torch.rand(C, generator=g, device=DEV) - 0.5) * 0.1).float()
+    before = fo._launch.launches
+    (dc, de), pcm = fo.linear_tail(amb, dc0, de0, vr)
+    torch.cuda.synchronize()
+    if fo._launch.launches - before != 1:
+        raise AssertionError("the rows tail is not one launch")
+    (dc_p, de_p), pcm_p = _parent_tail(amb, cfg, dc0, de0, vr)
+    torch.cuda.synchronize()
+    same = _bits_equal((dc, de, pcm), (dc_p, de_p, pcm_p))
+    worst = min(snr_db(pcm_p[c].double().cpu().numpy(), pcm[c].double().cpu().numpy())
+                for c in range(C))
+    _check(f"rows linear tail C={C} n={M} vs the parent's row scans and eager line, worst row, "
+           f"dB (bit-equal {same})", worst, 120.0, "kernel")
+
+    results["front_mc"] = (cfg, amb, st0.front, Y, vr, dc0, de0)
+
+    # the coherent bank as the benchmark's cam cell runs it (backend 'xla',
+    # the sc16 wire): a block launches the matrix instance twice (the
+    # chunked launch and the padded tail's re-run) and the rows tail once
+    from tpudsp_torch.chains import ChannelizedBank
+    bank = ChannelizedBank(cfg, N_PFB, backend="xla", input_format="i16", device=DEV)
+    wire = torch.randint(-3000, 3000, (N_PFB, 2), generator=g, device=DEV, dtype=torch.int16)
+    counters = lambda: (scan._launch.launches, scan._launch.matrix, fo._launch.launches)
+    torch.cuda.synchronize()
+    before = counters()
+    for _ in range(3):
+        bank(wire)
+    torch.cuda.synchronize()
+    got = tuple(a - b for a, b in zip(counters(), before))
+    log(f"kernel[coherent bank, 3 blocks]: launches (am_front_scan, its matrix instance, "
+        f"first_order_scan) {got}, expected (6, 6, 3)")
+    if got != (6, 6, 3):
+        raise AssertionError(f"coherent bank: launches {got}, not (6, 6, 3)")
+
+
+def _parent_tail(amb, cfg, dc0, de0, vr):
+    """The coherent bank's linear tail as the parent ran it: the DC
+    tracker's row scan, the eager audio line, the de-emphasis row scan."""
+    from tpudsp_torch.cuda import first_order as fo
+    from tpudsp_torch.kernels import ampmodem as kam
+    dc, dct = fo.first_order_apply_blocked(1.0 - kam.DC_RHO, kam.DC_RHO, dc0, vr)
+    de, pcm = fo.first_order_apply_blocked(*cfg.plan.deemph, de0, (vr - dct) * amb.inv_mod)
+    return (dc, de), pcm
+
+
+def time_front_mc():
+    """The matrix instance and the rows tail at the coherent bank's shape
+    (kernel_front_mc's inputs), each against the form it replaced (the
+    transpose, planes, planes launch and unplanes; the two row scans and
+    the eager line), by the call (CUDA events) and the kernels' device
+    time."""
+    from tpudsp_torch.cuda import am_backend_scan as scan
+    from tpudsp_torch.cuda import first_order as fo
+    cfg, amb, front, Y, vr, dc0, de0 = results.pop("front_mc")
+    (C, M), chunk, warmup = vr.shape, cfg.plan.chunk["xla"], cfg.plan.warmup
+    matrix_front = lambda: scan.front_chunked_mc(amb, front, Y, chunk, warmup)
+    planes_front = lambda: scan.front_chunked(amb, front, Y.T.contiguous(), chunk, warmup)
+    times = {
+        "front matrix call_ms": _cuda_ms(matrix_front, 5),
+        "front planes (transpose, planes, unplanes) call_ms": _cuda_ms(planes_front, 5),
+        "front matrix device_ms": _device_ms(matrix_front, "am_front_scan_kernel<true>", 3),
+        "front planes device_ms": _device_ms(planes_front, "am_front_scan_kernel<false>", 3),
+        "tail rows call_ms": _cuda_ms(lambda: fo.linear_tail(amb, dc0, de0, vr), 10),
+        "tail parent call_ms": _cuda_ms(lambda: _parent_tail(amb, cfg, dc0, de0, vr), 10),
+        "tail rows device_ms": _device_ms(lambda: fo.linear_tail(amb, dc0, de0, vr),
+                                          "linear_tail_kernel", 10),
+    }
+    log(f"timing: am_front_scan matrix / rows tail at {C} x {M}: "
+        + json.dumps({k: round(v, 4) for k, v in times.items()}))
+
+
 def ragged_batch():
     """A ragged 3-stream batch (49,923 samples): loud / quiet /
     loud-then-quiet streams whose settled rssi lies near -10 dB and -60 dB,
@@ -974,6 +1134,7 @@ def kernel_first_order():
 
 def phase_kernel():
     x, xc = kernel_front()
+    kernel_front_mc()
     x4 = kernel_agc(xc)
     kernel_pll(x, xc)
     results["inputs"] = dict(x96k=x, x4m=x4, xc=xc)
@@ -1108,13 +1269,17 @@ def phase_chain():
     n, block = 4_000_000, 2_000_000
     iq = am_signal(n, cfg.iq_rate, 200.0)
     y_ref = oracle_am_chain(iq, cfg)
+    from tpudsp_torch.cuda import am_backend_scan as scan
     from tpudsp_torch.cuda import first_order
     rx = AMReceiver(cfg, block, device=DEV)
     blocks = [torch.from_numpy(iq[:block]).to(DEV), torch.from_numpy(iq[block:]).to(DEV)]
     torch.cuda.synchronize()
     first_order._launch.launches = 0               # the receiver's run starts
+    matrix = scan._launch.matrix
     y = torch.cat([rx(b) for b in blocks]).cpu().numpy()
     _expect_launches("chain", first_order._launch.launches, len(blocks))   # ... and ends
+    if scan._launch.matrix != matrix:
+        raise AssertionError("chain: the AM receiver launched am_front_scan's matrix instance")
     settle = len(y) // 2
     s = snr_db(y_ref[settle:], y[settle:])
     log(f"chain: 2 x 2M-sample blocks vs float64 oracle chain: {s:.2f} dB "
@@ -2617,19 +2782,25 @@ def channelizer_am(timings, y_fm, blocks):
     outs, _ = _run_chain("envelope am", rx, blocks, {"pfb_branch": 1, "first_order_scan": 1},
                          phase="channelizer")
     timings["channelized envelope am c64"] = (rx, blocks, N_PFB)
-    coh = {"pfb_branch": 1, "am_front_scan": 1, "first_order_scan": 2}
     w = kwarm.warmup_for(agc_alpha=0.01, pll_bw=0.001)
-    for name, demod in (("coherent am", "am"), ("mixed", ("fm", "am") * 512)):
+    # the coherent bank: the matrix instance on Y and one rows tail; the
+    # mixed bank: the planes launch on its AM rows, the DC tracker's rows
+    # and the de-emphasis
+    for name, demod, front, coh in (
+            ("coherent am", "am", "front_chunked_mc",
+             {"pfb_branch": 1, "am_front_scan": 1, "first_order_scan": 1}),
+            ("mixed", ("fm", "am") * 512, "front_chunked",
+             {"pfb_branch": 1, "am_front_scan": 1, "first_order_scan": 2})):
         rx = ChannelizedBank(ChannelizedBankConfig(demod=demod, am_coherent=True), N_PFB,
                              backend="kernel", device=DEV)
-        outs, (am,) = _run_chain(name, rx, blocks, coh, [(tch, "front_chunked", 1)],
+        outs, (am,) = _run_chain(name, rx, blocks, coh, [(tch, front, 1)],
                                  phase="channelizer")
         p, st, xa, chunk, warmup = am[0][0]
         if (chunk, warmup) != (1024, w):
             raise AssertionError(f"channelizer {name}: chunk {chunk} warmup {warmup}")
-        _compare(f"channelizer {name} am_front_scan C={xa.shape[0]} L={xa.shape[1]} chunk "
-                 f"{chunk} warmup {warmup}", am[0][1],
-                 scan.front_chunked_ref(p, st, xa, chunk, warmup))
+        ref = getattr(scan, front + "_ref")
+        _compare(f"channelizer {name} am_front_scan {front} {tuple(xa.shape)} chunk "
+                 f"{chunk} warmup {warmup}", am[0][1], ref(p, st, xa, chunk, warmup))
         _am_tones(name, _rows(outs, PFB_AM), chan_rate)
         timings[f"channelized {name} c64"] = (rx, blocks, N_PFB)
         if name == "mixed":
@@ -2821,13 +2992,15 @@ def phase_channelizer():
     held against its plain version, every path's launches a block, Y and
     the FM audio against the float64 oracle, the wire formats, the 'conv'
     engine, the coherent AM channels; each path's block time, pfb_branch's
-    and the column carry's times."""
+    and the column carry's times, am_front_scan's matrix instance's and
+    the rows tail's."""
     kernel_pfb()
     kernel_first_order_mc()
     kernel_fm_deemph_cols()
     timings: dict = {}
     y_fm, blocks = channelizer_fm(timings)
     channelizer_am(timings, y_fm, blocks)
+    time_front_mc()
     res = time_receivers(timings)
     for path, v in res.items():
         log(f"timing: {path}: {N_PFB / v['host_ms'] / 1e3:.1f} Msamp/s by the host clock, "

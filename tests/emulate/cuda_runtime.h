@@ -1,8 +1,9 @@
-// CPU stand-ins for the CUDA features csrc/biquad_scan.cu,
-// csrc/first_order_scan.cu and csrc/pfb_branch.cu use, so that
-// tests/test_torch_biquad_emulated.py, tests/test_torch_first_order_cols_
-// emulated.py and tests/test_torch_pfb_emulated.py can build the kernels'
-// sources with g++ and run them on the host: a launch runs its blocks one
+// CPU stand-ins for the CUDA features csrc/am_front_scan.cu,
+// csrc/biquad_scan.cu, csrc/first_order_scan.cu and csrc/pfb_branch.cu use,
+// so that tests/test_torch_am_front_emulated.py, tests/test_torch_biquad_
+// emulated.py, tests/test_torch_first_order_cols_emulated.py and
+// tests/test_torch_pfb_emulated.py can build the kernels' sources with g++
+// and run them on the host: a launch runs its blocks one
 // after the other,
 // in ticket order, each block's threads as std::threads with std::barrier
 // for __syncthreads, __syncwarp and the warp shuffles (emulate_launch), or, for a
@@ -15,6 +16,7 @@
 #include <cstddef>
 #include <cstdio>
 #include <cstdlib>
+#include <cstring>
 #include <thread>
 #include <vector>
 
@@ -54,6 +56,17 @@ struct uchar2 {
 inline float2 make_float2(float x, float y) { return {x, y}; }
 
 inline float __fmaf_rn(float a, float b, float c) { return std::fmaf(a, b, c); }
+inline int __float2int_rn(float x) { return static_cast<int>(std::nearbyint(x)); }
+inline float __int_as_float(int v) {
+  float f;
+  std::memcpy(&f, &v, sizeof f);
+  return f;
+}
+inline int __float_as_int(float f) {
+  int v;
+  std::memcpy(&v, &f, sizeof v);
+  return v;
+}
 inline void __nanosleep(unsigned) {}
 inline void __trap() {
   std::fprintf(stderr, "trap\n");
@@ -100,6 +113,15 @@ inline float shuffle(float v, int src, bool in_range) {
   const float r = in_range ? g_lanes[w][src] : v;
   g_warps[w]->arrive_and_wait();
   return r;
+}
+inline bool __all_sync(unsigned, bool p) {
+  const int w = threadIdx.x / 32;
+  g_lanes[w][threadIdx.x % 32] = p ? 1.0f : 0.0f;
+  g_warps[w]->arrive_and_wait();
+  bool all = true;
+  for (int k = 0; k < 32; ++k) all = all && g_lanes[w][k] != 0.0f;
+  g_warps[w]->arrive_and_wait();
+  return all;
 }
 inline float __shfl_up_sync(unsigned, float v, int d) {
   const int l = threadIdx.x % 32;

@@ -32,8 +32,12 @@ from tpudsp.chains import channelizer as jch
 from tpudsp.kernels import iir as jiir
 from tpudsp_torch import convert
 from tpudsp_torch.chains import channelizer as tch
+from tpudsp_torch.cuda import am_backend_scan as tscan
 from tpudsp_torch.cuda import first_order, launch, pfb
 from tpudsp_torch.design import iirdes
+from tpudsp_torch.kernels import agc as tagc
+from tpudsp_torch.kernels import am_backend as tab
+from tpudsp_torch.kernels import ampmodem as tam
 from tpudsp_torch.kernels import iir as tiir
 from tpudsp_torch.kernels import pfb as kpfb
 
@@ -370,6 +374,132 @@ def test_channelized_am_bank_coherent(coherent_runs, port, jax_, bar):
     m = bank.metrics
     assert m.squelch_modes.shape == (32, 8192) and m.pll_freq.shape == (32,)
     assert torch.all(torch.isfinite(m.rssi))
+
+
+def _am_columns(L, C, seed):
+    """C AM carriers a little off centre as the columns of a (L, C)
+    complex64 channel matrix, in noise."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(L)[:, None]
+    m = 1 + 0.5 * np.sin(2 * np.pi * rng.uniform(0.005, 0.02, C) * t)
+    y = 0.3 * m * np.exp(2j * np.pi * rng.uniform(-0.002, 0.002, C) * t)
+    y = y + 0.01 * (rng.standard_normal((L, C)) + 1j * rng.standard_normal((L, C)))
+    return torch.from_numpy(y.astype(np.complex64))
+
+
+def _coherent_params_state(C, seed):
+    amb = tab.make_params(tagc.make_params(alpha=0.05, scale=1.0, device="cpu"), 1.0,
+                          *iirdes.deemphasis_coeffs(97_656.25), carrier=True)
+    g = torch.Generator().manual_seed(seed)
+    agc = tagc.AgcState(*(v.expand(C).contiguous() for v in tagc.agc_init(device="cpu")))
+    pll = tab.PllState((torch.rand(C, generator=g) - 0.5) * 2.0,
+                       (torch.rand(C, generator=g) - 0.5) * 0.01)
+    return amb, tab.FrontState(agc, pll)
+
+
+def _same_bits(a, b):
+    assert a.shape == b.shape and a.dtype == b.dtype
+    if a.is_floating_point():
+        a, b = a.contiguous().view(torch.int32), b.contiguous().view(torch.int32)
+    return torch.equal(a, b)
+
+
+@pytest.mark.parametrize("L, C, chunk, warmup", [
+    # cam's geometry scaled down (chunk = warmup, 5 chunks, the last one
+    # padded by 2816 / 16384 of a block: here 704 of 4096), the warmup one
+    # chunk, so a lane's window reaches back into the chunk before it
+    (4096, 32, 960, 960),
+    # a channel count that is no multiple of 32, a warmup spanning chunks
+    (3000, 37, 700, 1500),
+    # one chunk: the exact route
+    (1500, 20, 1280, 1280),
+])
+def test_front_chunked_mc_ref_matches_front_chunked_ref_of_the_transpose(L, C, chunk, warmup):
+    """The matrix entry's plain version (channel-minor lanes read from Y's
+    columns) is front_chunked_ref of Y's transpose bit for bit: vr and
+    modes (C, L) and every carried state leaf."""
+    Y = _am_columns(L, C, L + C)
+    amb, st = _coherent_params_state(C, C)
+    got_front, got = tscan.front_chunked_mc(amb, st, Y, chunk, warmup)
+    want_front, want = tscan.front_chunked_ref(amb, st, Y.T.contiguous(), chunk, warmup)
+    for a, b in zip([*got_front.agc, *got_front.pll, *got],
+                    [*want_front.agc, *want_front.pll, *want]):
+        assert _same_bits(a, b)
+    assert got[0].shape == (C, L) and got[1].dtype == torch.int32
+
+
+def test_linear_tail_rows_matches_the_parent_row_scans():
+    """cuda/first_order.linear_tail over C rows (the coherent bank's one
+    launch) against the DC tracker's row scan, the eager audio line and the
+    de-emphasis row scan it replaces: bit for bit on the CPU, and >= 120 dB
+    from a float64 serial loop."""
+    C, n = 24, 2 * tiir.TILE_BLOCKS * tiir.L_BLOCK + 77
+    rng = np.random.default_rng(5)
+    vr = torch.from_numpy((0.3 + 0.2 * rng.standard_normal((C, n))).astype(np.float32))
+    dc0 = torch.from_numpy(rng.uniform(0.2, 0.4, C).astype(np.float32))
+    de0 = torch.from_numpy(rng.uniform(-0.1, 0.1, C).astype(np.float32))
+    amb, _ = _coherent_params_state(C, 0)
+    (dc, de), pcm = first_order.linear_tail(amb, dc0, de0, vr)
+    dc_p, dct = first_order.first_order_apply_blocked(1.0 - tam.DC_RHO, tam.DC_RHO, dc0, vr)
+    de_p, pcm_p = first_order.first_order_apply_blocked(amb.deemph_b0, amb.deemph_a, de0,
+                                                        (vr - dct) * amb.inv_mod)
+    assert _same_bits(dc, dc_p) and _same_bits(de, de_p) and _same_bits(pcm, pcm_p)
+    v, d, e = vr.double().numpy(), dc0.double().numpy(), de0.double().numpy()
+    ref = np.empty((C, n))
+    for k in range(n):
+        d = tam.DC_RHO * d + (1.0 - tam.DC_RHO) * v[:, k]
+        e = amb.deemph_b0 * (v[:, k] - d) + amb.deemph_a * e
+        ref[:, k] = e
+    assert snr_db(ref, pcm.numpy()) >= 120.0
+
+
+def _parent_cam_step(params, state, x, cfg, backend):
+    """bank_step's coherent route as it was on the (C, M) rows: Y's
+    transpose, the planes front, the DC tracker's row scan, the eager audio
+    line and the de-emphasis row scan."""
+    plan = cfg.plan
+    Ht, _, _, amb, _ = params
+    ch, Y = tch._channelize(Ht, state.ch, x, cfg.channelizer.oversample,
+                            cfg.channelizer.engine)
+    Yc = Y.T.contiguous()
+    front, (vr, modes) = tscan.front_chunked(amb, state.front, Yc, plan.chunk[backend],
+                                             plan.warmup)
+    dc, dct = first_order.first_order_apply_blocked(1.0 - tam.DC_RHO, tam.DC_RHO, state.dc, vr)
+    deemph, audio = first_order.first_order_apply_blocked(*plan.deemph, state.deemph,
+                                                          (vr - dct) * amb.inv_mod)
+    return tch.DemodBankState(ch, Yc[:, -1].clone(), deemph, front, dc), (audio, modes)
+
+
+@pytest.mark.parametrize("backend", ["xla", "kernel"])
+def test_cam_route_matches_the_parent_route(backend):
+    """bank_step's 'cam' route (the matrix front on Y, one rows tail) against
+    the parent's route over two blocks: the audio, the squelch modes (C, M),
+    the metrics and every carried state leaf bit for bit ('xla': chunk 1280,
+    a padded last chunk; 'kernel': chunk 1024, none)."""
+    C, n = 16, 16 * 4096
+    t = np.arange(2 * n)
+    m = np.sin(2 * np.pi * 1000.0 / 1.6e6 * t)
+    x = ((1 + 0.5 * m) * 0.4 * np.exp(2j * np.pi * (3 / C + 15.0 / 1.6e6) * t)
+         + _noise(2 * n, 3, 0.05)).astype(np.complex64)
+    _, ct = _bank_cfgs(dict(nchan=C, taps_per_branch=8, iq_rate=1.6e6), demod="am",
+                       am_coherent=True, agc_bandwidth=0.05)
+    assert ct.plan.route == "cam"
+    params, state = tch.bank_build(ct, device="cpu")
+    parent = state
+    for b in range(2):
+        xb = torch.from_numpy(x[b * n:(b + 1) * n])
+        state, (audio, met) = tch.bank_step(params, state, xb, cfg=ct, backend=backend)
+        parent, (p_audio, p_modes) = _parent_cam_step(params, parent, xb, ct, backend)
+        assert audio.shape == (C, n // C) and met.squelch_modes.shape == (C, n // C)
+        assert _same_bits(audio, p_audio) and _same_bits(met.squelch_modes, p_modes)
+        assert _same_bits(met.pll_freq, parent.front.pll.freq)
+        assert _same_bits(met.rssi, tch.kmet.rssi_db(parent.front.agc.g))
+        got = [state.ch.tail, state.fd_prev, state.deemph, state.dc, *state.front.agc,
+               *state.front.pll]
+        want = [parent.ch.tail, parent.fd_prev, parent.deemph, parent.dc, *parent.front.agc,
+                *parent.front.pll]
+        for a, w in zip(got, want):
+            assert _same_bits(a, w)
 
 
 def test_oversampled_matches_bruteforce_oracle():

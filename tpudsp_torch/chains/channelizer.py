@@ -19,11 +19,16 @@ depthwise dilated conv1d over the frame matrix.
 The demod bank runs on the channels: the uniform-FM bank on the
 channelizer's (M, C) layout directly (the discriminator and the
 de-emphasis down the columns in one ``csrc/first_order_scan.cu`` launch,
-``cuda/first_order.fm_deemph_cols``, which writes the (C, M) audio rows),
-the others on the (C, M) rows (envelope AM; the coherent AM channels' AGC
-+ carrier PLL in one ``csrc/am_front_scan.cu`` launch and their DC
-tracker in one first_order_scan launch; the de-emphasis of the C rows in
-one more).
+``cuda/first_order.fm_deemph_cols``, which writes the (C, M) audio rows);
+the uniform coherent AM bank too (the AGC + carrier PLL of every channel
+by ``csrc/am_front_scan.cu``'s matrix instance, which reads Y's columns in
+place and writes vr as (C, M) rows, with a second launch for a padded
+last chunk's exact re-run; then the DC tracker, the audio line and the
+de-emphasis of the C rows in one first_order_scan launch,
+``cuda/first_order.linear_tail``); the others on the (C, M) rows
+(envelope AM; a mixed bank's coherent AM channels by the planes launch
+of am_front_scan and their DC tracker in one first_order_scan launch; the
+de-emphasis of the C rows in one more).
 
 ``bank_step`` only enqueues device work: it reads no value of a device
 tensor on the host.
@@ -38,7 +43,7 @@ from typing import NamedTuple
 import torch
 
 from ..cuda import first_order, pfb
-from ..cuda.am_backend_scan import front_chunked
+from ..cuda.am_backend_scan import front_chunked, front_chunked_mc
 from ..design import firdes
 from ..kernels import agc as kagc
 from ..kernels import am_backend as kab
@@ -288,15 +293,27 @@ def bank_step(params, state: DemodBankState, x, *, cfg: ChannelizedBankConfig,
     channelize, then demodulate every channel (discriminator + de-emphasis
     for FM; envelope or the coherent AGC + PLL + DC back end for AM).
     ``backend`` sets the coherent AM channels' chunk and warmup: both run
-    csrc/am_front_scan.cu over the Ca streams in one launch, 'kernel' (or
-    'pallas') with the JAX package's Pallas chunk (KERNEL_CHUNK) while the
-    warmup fits its cap, 'xla' with its XLA chunk (warmup.chunk_for)."""
+    csrc/am_front_scan.cu over the Ca streams, 'kernel' (or 'pallas') with
+    the JAX package's Pallas chunk (KERNEL_CHUNK) while the warmup fits its
+    cap, 'xla' with its XLA chunk (warmup.chunk_for)."""
     backend = _check_back_end(False, backend)
     plan = cfg.plan
     Ht, _, _, amb, fm_mask = params
     with annotate("bank_step.channelize"):
         ch_state, Y = _channelize(Ht, state.ch, x, cfg.channelizer.oversample,
                                   cfg.channelizer.engine)   # (M, C)
+    if plan.route == "cam":
+        # the uniform coherent AM bank on the (M, C) layout: the front reads
+        # Y's columns in place and writes vr as (C, M) rows, and one launch
+        # runs the DC tracker, the audio line and the de-emphasis of the rows
+        with annotate("bank_step.demod"):
+            front, (vr, sq_modes) = front_chunked_mc(amb, state.front, Y,
+                                                     plan.chunk[backend], plan.warmup)
+            (dc, deemph), audio = first_order.linear_tail(amb, state.dc, state.deemph, vr)
+        metrics = BlockMetrics(rssi=kmet.rssi_db(front.agc.g), squelch_modes=sq_modes,
+                               pll_freq=front.pll.freq, resamp_credit=None)
+        return (DemodBankState(ch_state, Y[-1].clone(), deemph, front, dc),
+                (audio, metrics))
     if plan.route == "fm":
         # the uniform-FM bank on the channelizer's (M, C) layout: the
         # discriminator and the de-emphasis down the columns in one launch,
@@ -312,26 +329,19 @@ def bank_step(params, state: DemodBankState, x, *, cfg: ChannelizedBankConfig,
     fd_prev = Yc[:, -1].clone()
     front, dc = state.front, state.dc
     sq_modes = None
-
-    def coherent(y, front0, dc0):
-        fr, (vr, modes) = front_chunked(amb, front0, y, plan.chunk[backend], plan.warmup)
-        dc2, dct = first_order.first_order_apply_blocked(
-            1.0 - kam.DC_RHO, kam.DC_RHO, dc0, vr)
-        return fr, dc2, (vr - dct) * amb.inv_mod, modes
-
     with annotate("bank_step.demod"):
-        if plan.route == "cam":
-            front, dc, base, sq_modes = coherent(Yc, state.front, state.dc)
-        elif plan.route == "am":
+        if plan.route == "am":
             base = torch.abs(Yc)
         else:
             base = torch.where(fm_mask[:, None], _fm_base(Yc, state.fd_prev, cfg.kd),
                                torch.abs(Yc))
             if plan.coherent:
                 idx = _index_tensor(plan.am_idx, Yc.device)
-                front, dc, coh, sq_modes = coherent(Yc.index_select(0, idx), state.front,
-                                                    state.dc)
-                base = base.index_copy(0, idx, coh)
+                front, (vr, sq_modes) = front_chunked(amb, front, Yc.index_select(0, idx),
+                                                      plan.chunk[backend], plan.warmup)
+                dc, dct = first_order.first_order_apply_blocked(
+                    1.0 - kam.DC_RHO, kam.DC_RHO, dc, vr)
+                base = base.index_copy(0, idx, (vr - dct) * amb.inv_mod)
         # the de-emphasis over the C rows: one launch
         deemph, audio = first_order.first_order_apply_blocked(*plan.deemph, state.deemph,
                                                               base)

@@ -21,6 +21,23 @@
 // over each stream: the same kernel serves the chunked route, the tail fix
 // and the sharded receiver's single-lane entry scan.
 //
+// Two instances of one body, by the caller's layout. The planes instance
+// (am_front_scan) reads (chunk, lanes) f32 planes, lane c * nchunks + i, and
+// stores each step's vr and mode to (chunk, lanes) planes. The matrix
+// instance (am_front_scan_mc) reads the streams as the columns of the
+// channelizer's (len, C) complex64 matrix Y in place, lane i * C + c, so a
+// group is 32 adjacent channels of one chunk; zeros past len stand for the
+// last chunk's padding. Its vr and modes go to (C, len) rows: the squelch
+// and PLL warps leave each step's mode and vr in the stage buffer they have
+// just read (the gain ring, the AGC output ring), and the squelch warp,
+// which has time to spare, writes a stage's modes out after running it and
+// the PLL's vr two stages later, before refilling that buffer, each lane's
+// run of a stage as coalesced stores (scan_step.cuh's write_rows; its
+// buffers padded to GROUP + 1 floats a row). The steps are the same, so
+// the outputs and states are the planes instance's bit for bit: the lanes'
+// grouping only decides which warps take the bounded PLL path, which gives
+// the same bits.
+//
 // Math. Exactly the step of front_sample_step: the AGC half is
 // scan_step.cuh's gain_step and squelch_step (shared with agc_scan.cu), the
 // PLL half uses the 6-coefficient polynomial atan2 (patan2) and f32
@@ -58,8 +75,20 @@ constexpr int WARPS = 3;
 // stages of (re, im), a double-buffered gain ring and a double-buffered
 // ring of the AGC output (re, im)
 constexpr int WORDS = 2 * XBUF + 2 + 4;
-constexpr int SMEM = STAGE * GROUP * WORDS * sizeof(float);  // bytes per block
-static_assert(SMEM <= SMEM_MAX, "the stage buffers exceed a block's shared memory");
+
+// An instance's shared memory: the stage buffers at PITCH floats a row, and
+// the matrix instance's row spans of its lanes
+template <bool MATRIX>
+struct Layout {
+  static constexpr int PITCH = MATRIX ? GROUP + 1 : GROUP;
+  static constexpr int SPAN = STAGE * PITCH;   // floats of one [STAGE][PITCH] buffer
+  static constexpr int SMEM =                  // bytes per block
+      SPAN * WORDS * sizeof(float) + (MATRIX ? GROUP * sizeof(RowSpan) : 0);
+  static_assert(SMEM <= SMEM_MAX, "the stage buffers exceed a block's shared memory");
+  // two blocks an SM (the coherent bank's 160 groups in one wave on 132
+  // SMs); 1 KB of each block's shared memory is the system's
+  static_assert(2 * (SMEM + 1024) <= 228 * 1024, "two blocks must fit an SM");
+};
 
 __device__ __forceinline__ float patan2f(float y, float x) {
   const float ax = fabsf(x), ay = fabsf(y);
@@ -101,6 +130,10 @@ __device__ __forceinline__ float pll_step(const PllParams& p, bool live, float o
   return vr;
 }
 
+// MATRIX: xre is Y, the (len, lanes / nchunks) complex64 matrix, and xim is
+// unused; vr_out / modes_out are (C, len) rows, written unless null. Else
+// xre / xim / vr_out / modes_out are (chunk, lanes) planes and len is unused.
+template <bool MATRIX>
 __global__ void __launch_bounds__(WARPS * GROUP)
 am_front_scan_kernel(const float* __restrict__ scal,
                      const float* __restrict__ xre, const float* __restrict__ xim,
@@ -111,20 +144,26 @@ am_front_scan_kernel(const float* __restrict__ scal,
                      float* __restrict__ gN, float* __restrict__ y2pN,
                      int* __restrict__ modeN, int* __restrict__ timerN,
                      float* __restrict__ thN, float* __restrict__ frN,
-                     int lanes, int nchunks, int chunk, int warmup) {
+                     int lanes, int nchunks, int chunk, int warmup, int len) {
+  using Lay = Layout<MATRIX>;
+  constexpr int P = Lay::PITCH;
+  constexpr int SP = Lay::SPAN;
   extern __shared__ float smem[];
-  const GroupLane g(lanes, nchunks, chunk, warmup);
+  const GroupLane g(lanes, nchunks, chunk, warmup, MATRIX);
   const AgcParams p = load_agc_params(scal);
   PllParams pp;
   pp.alpha = scal[6];
   pp.beta = scal[7];
   pp.use_pll = scal[8];
   const int role = threadIdx.x / GROUP;   // 0: gain, 1: squelch + loads, 2: PLL
+  const int streams = lanes / nchunks;
+  const bool rows = MATRIX && vr_out != nullptr;
   float* const sre = smem;
-  float* const sim = sre + XBUF * SPAN;
-  float* const gring = sim + XBUF * SPAN;
-  float* const ore = gring + 2 * SPAN;
-  float* const oim = ore + 2 * SPAN;
+  float* const sim = sre + XBUF * SP;
+  float* const gring = sim + XBUF * SP;
+  float* const ore = gring + 2 * SP;
+  float* const oim = ore + 2 * SP;
+  RowSpan* const spans = reinterpret_cast<RowSpan*>(oim + 2 * SP);
 
   // a lane beyond `lanes` starts from a fixed state and never steps
   float gain = g.ok ? g0[g.c] : 1.0f;
@@ -135,58 +174,84 @@ am_front_scan_kernel(const float* __restrict__ scal,
   float theta = g.ok ? th0[g.c] : 0.0f;
   float freq = g.ok ? fr0[g.c] : 0.0f;
 
+  auto stage = [&](int s) {
+    const int b = (s % XBUF) * SP;
+    if constexpr (MATRIX)
+      stage_matrix_inputs<P>(g, xre, streams, len, sre + b, sim + b, s);
+    else
+      stage_inputs(g, xre, xim, sre + b, sim + b, s);
+  };
   if (role == 1) {
-    stage_inputs(g, xre, xim, sre, sim, 0);
+    if constexpr (MATRIX) spans[g.j] = row_span(g, len);
+    stage(0);
     cp_async_wait_all();
   }
   __syncthreads();
   // iteration it: gain runs stage it, squelch stage it - 1 while the
-  // inputs of stage it + 1 arrive, the PLL stage it - 2
-  for (int it = 0; it <= g.nstages + 1; ++it) {
+  // inputs of stage it + 1 arrive, the PLL stage it - 2; in the matrix
+  // instance the squelch warp writes out the PLL's vr of stage it - 3, one
+  // iteration more
+  for (int it = 0; it <= g.nstages + 1 + MATRIX; ++it) {
     if (role == 0) {
       if (it < g.nstages) {
-        const int b = (it % XBUF) * SPAN;
-        float* const gr = gring + (it % 2) * SPAN;
-        run_stage(g, it, sre + b, sim + b, sre + b,
-                  [&](int k, int tau, float xr, float xi, float) {
-                    gain_step(p, g.live(tau), xr, xi, gain, y2p);
-                    gr[k * GROUP + g.j] = gain;
-                  });
+        const int b = (it % XBUF) * SP;
+        float* const gr = gring + (it % 2) * SP;
+        run_stage<P>(g, it, sre + b, sim + b, sre + b,
+                     [&](int k, int tau, float xr, float xi, float) {
+                       gain_step(p, g.live(tau), xr, xi, gain, y2p);
+                       gr[k * P + g.j] = gain;
+                     });
       }
     } else if (role == 1) {
-      if (it + 1 < g.nstages) {
-        const int b = ((it + 1) % XBUF) * SPAN;
-        stage_inputs(g, xre, xim, sre + b, sim + b, it + 1);
+      if (it + 1 < g.nstages) stage(it + 1);
+      if (rows) {
+        // stage it - 3's vr lies in the AGC output ring that this
+        // iteration's squelch stage refills
+        const int v = it - 3;
+        if (v >= 0 && v < g.nstages) write_rows<P>(spans, ore + (v % 2) * SP, v, warmup, vr_out);
+        __syncwarp();
       }
       const int s = it - 1;
       if (s >= 0 && s < g.nstages) {
-        const int b = (s % XBUF) * SPAN;
-        float* const wr = ore + (s % 2) * SPAN;
-        float* const wi = oim + (s % 2) * SPAN;
-        run_stage(g, s, sre + b, sim + b, gring + (s % 2) * SPAN,
-                  [&](int k, int tau, float xr, float xi, float gnew) {
-                    const int o = k * GROUP + g.j;
-                    squelch_step(p, g.live(tau), xr, xi, gprev, gnew, mode, timer,
-                                 wr[o], wi[o]);
-                    gprev = gnew;
-                    store_if(g.writes(tau), modes_out + g.out_index(tau), mode);
-                  });
+        const int b = (s % XBUF) * SP;
+        float* const gr = gring + (s % 2) * SP;
+        float* const wr = ore + (s % 2) * SP;
+        float* const wi = oim + (s % 2) * SP;
+        run_stage<P>(g, s, sre + b, sim + b, gr,
+                     [&](int k, int tau, float xr, float xi, float gnew) {
+                       const int o = k * P + g.j;
+                       squelch_step(p, g.live(tau), xr, xi, gprev, gnew, mode, timer,
+                                    wr[o], wi[o]);
+                       gprev = gnew;
+                       if constexpr (MATRIX)
+                         gr[o] = __int_as_float(mode);   // the gain it read, spent
+                       else
+                         store_if(g.writes(tau), modes_out + g.out_index(tau), mode);
+                     });
+        if (rows) {
+          __syncwarp();
+          write_rows<P>(spans, gr, s, warmup, modes_out);
+        }
       }
       cp_async_wait_all();
     } else {
       const int s = it - 2;
-      if (s >= 0) {
-        const float* rr = ore + (s % 2) * SPAN;
-        const float* ri = oim + (s % 2) * SPAN;
-        if (bounded_stage(pp, theta, freq))
-          run_stage(g, s, rr, ri, rr, [&](int, int tau, float outr, float outi, float) {
-            const float vr = pll_step<true>(pp, g.live(tau), outr, outi, theta, freq);
+      if (s >= 0 && s < g.nstages) {
+        float* const rr = ore + (s % 2) * SP;
+        const float* ri = oim + (s % 2) * SP;
+        auto put_vr = [&](int k, int tau, float vr) {
+          if constexpr (MATRIX)
+            rr[k * P + g.j] = vr;   // in place of the AGC output's real part, read
+          else
             store_if(g.writes(tau), vr_out + g.out_index(tau), vr);
+        };
+        if (bounded_stage(pp, theta, freq))
+          run_stage<P>(g, s, rr, ri, rr, [&](int k, int tau, float outr, float outi, float) {
+            put_vr(k, tau, pll_step<true>(pp, g.live(tau), outr, outi, theta, freq));
           });
         else
-          run_stage(g, s, rr, ri, rr, [&](int, int tau, float outr, float outi, float) {
-            const float vr = pll_step<false>(pp, g.live(tau), outr, outi, theta, freq);
-            store_if(g.writes(tau), vr_out + g.out_index(tau), vr);
+          run_stage<P>(g, s, rr, ri, rr, [&](int k, int tau, float outr, float outi, float) {
+            put_vr(k, tau, pll_step<false>(pp, g.live(tau), outr, outi, theta, freq));
           });
       }
     }
@@ -206,12 +271,37 @@ am_front_scan_kernel(const float* __restrict__ scal,
   }
 }
 
+template <bool MATRIX>
+int launch(const float* scal, const float* xre, const float* xim, const float* g0,
+           const float* y2p0, const int* mode0, const int* timer0, const float* th0,
+           const float* fr0, float* vr, int* modes, float* gN, float* y2pN, int* modeN,
+           int* timerN, float* thN, float* frN, int lanes, int nchunks, int chunk,
+           int warmup, int len, void* stream) {
+  if (lanes <= 0) return 0;
+  cudaError_t e = cudaFuncSetAttribute(am_front_scan_kernel<MATRIX>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       Layout<MATRIX>::SMEM);
+  // the largest carveout, which two blocks of the matrix instance need
+  if (e == cudaSuccess && MATRIX)
+    e = cudaFuncSetAttribute(am_front_scan_kernel<MATRIX>,
+                             cudaFuncAttributePreferredSharedMemoryCarveout, 100);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int blocks = (lanes + GROUP - 1) / GROUP;
+  am_front_scan_kernel<MATRIX><<<blocks, WARPS * GROUP, Layout<MATRIX>::SMEM,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      scal, xre, xim, g0, y2p0, mode0, timer0, th0, fr0, vr, modes, gN, y2pN, modeN, timerN,
+      thN, frN, lanes, nchunks, chunk, warmup, len);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// Plain C entry point for ctypes. Planes xre/xim/vr/modes are (chunk, lanes)
-// row-major; initial state vectors are per stream (lanes / nchunks); final
-// state vectors are per lane. Launches on `stream` and returns a
-// cudaError_t (0 on success); it does not synchronise.
+// Plain C entry points for ctypes. Launch on `stream` and return a
+// cudaError_t (0 on success); they do not synchronise. Initial state vectors
+// are per stream (lanes / nchunks), final state vectors per lane.
+//
+// am_front_scan: planes xre/xim/vr/modes are (chunk, lanes) row-major, lane
+// c * nchunks + i.
 extern "C" int am_front_scan(const float* scal, const float* xre, const float* xim,
                              const float* g0, const float* y2p0, const int* mode0,
                              const int* timer0, const float* th0, const float* fr0,
@@ -219,14 +309,21 @@ extern "C" int am_front_scan(const float* scal, const float* xre, const float* x
                              int* modeN, int* timerN, float* thN, float* frN,
                              int lanes, int nchunks, int chunk, int warmup,
                              void* stream) {
-  if (lanes <= 0) return 0;
-  cudaError_t e = cudaFuncSetAttribute(
-      am_front_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const int blocks = (lanes + GROUP - 1) / GROUP;
-  am_front_scan_kernel<<<blocks, WARPS * GROUP, SMEM,
-                         static_cast<cudaStream_t>(stream)>>>(
-      scal, xre, xim, g0, y2p0, mode0, timer0, th0, fr0, vr, modes, gN, y2pN,
-      modeN, timerN, thN, frN, lanes, nchunks, chunk, warmup);
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(scal, xre, xim, g0, y2p0, mode0, timer0, th0, fr0, vr, modes, gN, y2pN,
+                       modeN, timerN, thN, frN, lanes, nchunks, chunk, warmup, 0, stream);
+}
+
+// am_front_scan_mc: the C streams are the columns of y, a row-major (len,
+// C) complex64 matrix, read in place; lane i * C + c, nchunks * chunk >= len;
+// vr (f32) and modes (i32) are (C, len) row-major, both written unless vr
+// is null.
+extern "C" int am_front_scan_mc(const float* scal, const float* y, const float* g0,
+                                const float* y2p0, const int* mode0, const int* timer0,
+                                const float* th0, const float* fr0, float* vr, int* modes,
+                                float* gN, float* y2pN, int* modeN, int* timerN, float* thN,
+                                float* frN, int C, int nchunks, int chunk, int warmup, int len,
+                                void* stream) {
+  return launch<true>(scal, y, nullptr, g0, y2p0, mode0, timer0, th0, fr0, vr, modes, gN, y2pN,
+                      modeN, timerN, thN, frN, C * nchunks, nchunks, chunk, warmup, len,
+                      stream);
 }

@@ -37,6 +37,7 @@ _F = ctypes.c_float
 SIGNATURES = {
     "am_front_scan": {
         "am_front_scan": [_P] * 17 + [_I] * 4 + [_P],
+        "am_front_scan_mc": [_P] * 16 + [_I] * 5 + [_P],
     },
     "agc_scan": {
         "agc_scan": [_P] * 14 + [_I] * 4 + [_P],

@@ -21,7 +21,8 @@ runs it as one hand-written kernel launch per call:
   (counted in ``first_order_apply_blocked_mc``'s launches too, as the
   same kernel, and in its own);
 - ``linear_tail``: the AM receiver's DC tracker, audio line and
-  de-emphasis over vr (n,), in one launch.
+  de-emphasis over vr (n,), or over the C rows of vr (C, n) (the
+  channelized coherent AM bank's), in one launch.
 
 Dispatch: CPU tensors take the plain versions in ``kernels/iir``; CUDA
 tensors launch the kernel or raise. There is no fallback.
@@ -186,18 +187,23 @@ fm_deemph_cols.launches = 0
 
 
 def linear_tail(p, dc0, de0, vr):
-    """The AM receiver's linear tail over vr (n,) f32, as kernels/iir.
-    linear_tail computes it: on CUDA, one launch for both recurrences and
-    the audio line between them. Returns ((dc_last, de_last), pcm)."""
+    """The AM receiver's linear tail over vr (n,) f32 with 0-d carries, or
+    over the rows of vr (C, n) with carries (C,), as kernels/iir.linear_tail
+    computes it: on CUDA, one launch for both recurrences and the audio line
+    between them, over every row. Returns ((dc_last, de_last), pcm), shaped
+    like the carries and vr."""
     if vr.device.type == "cpu":
         return kiir.linear_tail(p, dc0, de0, vr)
     dev = vr.device
+    n = vr.shape[-1]
+    rows = vr.reshape(-1, n).contiguous()
+    R = rows.shape[0]
     tabs = (kiir.device_table(1.0 - p.dc_rho, p.dc_rho, dev),
             kiir.device_table(p.deemph_b0, p.deemph_a, dev))
     # [use_dc, inv_mod], made once per parameter set
     scal = launch.memo("linear_tail", (p.use_dc, p.inv_mod),
                        lambda: torch.stack([p.use_dc, p.inv_mod]).float())
     pcm, (dc_last, de_last) = _launch(
-        "linear_tail_scan", tabs, scal, vr.reshape(1, -1).contiguous(),
-        (dc0.reshape(1).float(), de0.reshape(1).float()))
-    return (dc_last[0], de_last[0]), pcm[0]
+        "linear_tail_scan", tabs, scal, rows, (dc0.reshape(R).float(), de0.reshape(R).float()))
+    last = lambda v: v.reshape(vr.shape[:-1])
+    return (last(dc_last), last(de_last)), pcm.reshape(vr.shape)

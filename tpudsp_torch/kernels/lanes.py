@@ -14,7 +14,10 @@ All lanes then scan their chunk in parallel.
 ``chunked_scan`` is the plain version every CUDA scan kernel of the port
 is held against (``csrc/scan_step.cuh`` lays its lanes out the same way):
 a Python loop over the steps, vectorised over the lanes. The planes are
-time-major (chunk, lanes), as the kernels read them.
+time-major (chunk, lanes), as the kernels read them. ``chunked_scan_mc``
+is the same scan over the streams held as the columns of a (L, C) matrix,
+read where they lie, with the lanes channel-minor (lane i*C + c), as the
+matrix instance of ``csrc/am_front_scan.cu`` takes them.
 """
 
 from __future__ import annotations
@@ -51,10 +54,22 @@ def unplanes(v, C: int, L: int):
     return v.T.reshape(C, -1)[:, :L]
 
 
+def unplanes_mc(v, C: int, L: int):
+    """(chunk, nchunks*C) plane of channel-minor lanes -> (C, L) in stream
+    order."""
+    return v.reshape(v.shape[0], -1, C).permute(2, 1, 0).reshape(C, -1)[:, :L]
+
+
 def per_stream(tree, C: int, k: int):
     """Per-lane leaves (C*nchunks,) -> chunk k (e.g. -1, the last) of each
     stream, (C,)."""
     return tree_map(lambda v: v.reshape(C, -1)[:, k].contiguous(), tree)
+
+
+def per_stream_mc(tree, C: int, k: int):
+    """Per-lane leaves (nchunks*C,) of channel-minor lanes -> chunk k of
+    each stream, (C,): a view, no copy."""
+    return tree_map(lambda v: v.view(-1, C)[k], tree)
 
 
 def per_lane(tree, nchunks: int):
@@ -89,27 +104,57 @@ def warmup_windows(x, chunk: int, warmup: int, nchunks: int):
     return win[0], win[1], t_start
 
 
+def _scan(step, st, wre, wim, t_start, xre, xim):
+    """The lanes' warmup (steps before t_start masked out), then their
+    chunks. Returns (entry, final, outs)."""
+    for t in range(wre.shape[0]):
+        st2, _ = step(st, wre[t], wim[t])
+        valid = t >= t_start
+        st = tree_map(lambda a, b: torch.where(valid, a, b), st2, st)
+    entry = st
+    outs = []
+    for t in range(xre.shape[0]):
+        st, o = step(st, xre[t], xim[t])
+        outs.append(o)
+    outs = tuple(torch.stack(k) for k in zip(*outs))
+    return entry, st, outs
+
+
 def chunked_scan(step, state, x, chunk: int, warmup: int):
     """Run ``step(state, xr, xi) -> (state, outs)`` (outs a tuple of
     per-lane tensors) over the lanes of x (C, L) complex64 from per-stream
     state leaves (C,). Returns (entry, final, outs, nchunks, pad): the
     per-lane states after the warmup and after the chunk, and each output
     as a (chunk, lanes) plane."""
-    C, L = x.shape
     xre, xim, nchunks, pad = planes(x, chunk)
     wre, wim, t_start = warmup_windows(x, chunk, warmup, nchunks)
-    st = per_lane(state, nchunks)
-    for t in range(warmup):
-        st2, _ = step(st, wre[t], wim[t])
-        valid = t >= t_start
-        st = tree_map(lambda a, b: torch.where(valid, a, b), st2, st)
-    entry = st
-    outs = []
-    for t in range(chunk):
-        st, o = step(st, xre[t], xim[t])
-        outs.append(o)
-    outs = tuple(torch.stack(k) for k in zip(*outs))
-    return entry, st, outs, nchunks, pad
+    return _scan(step, per_lane(state, nchunks), wre, wim, t_start, xre, xim) + (nchunks, pad)
+
+
+def chunked_scan_mc(step, state, Y, chunk: int, warmup: int):
+    """``chunked_scan`` over the C streams held as the columns of Y (L, C)
+    complex64, read in place: lane i*C + c carries chunk i of stream c, and
+    step t of its warmup or chunk reads sample p = i*chunk - warmup + t or
+    i*chunk + t of the stream, Y[p, c], zero outside [0, L). Returns
+    (entry, final, outs, nchunks, pad), the lanes channel-minor."""
+    L, C = Y.shape
+    dev = Y.device
+    nchunks = -(-L // chunk)
+    i = torch.arange(nchunks, device=dev).repeat_interleave(C)
+    c = torch.arange(C, device=dev).repeat(nchunks)
+    yr = torch.view_as_real(Y)
+
+    def read(p):
+        v = yr[p.clamp(0, L - 1), c]
+        v = torch.where(((p >= 0) & (p < L))[..., None], v, 0.0)
+        return v[..., 0], v[..., 1]
+
+    steps = lambda n: torch.arange(n, device=dev)[:, None]
+    xre, xim = read(i * chunk + steps(chunk))
+    wre, wim = read(i * chunk - warmup + steps(warmup))
+    t_start = warmup - torch.clamp_max(i * chunk, warmup)
+    st = tree_map(lambda v: v.repeat(nchunks), state)
+    return _scan(step, st, wre, wim, t_start, xre, xim) + (nchunks, nchunks * chunk - L)
 
 
 def exact_scan(step, state, x):
